@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): the UNC DMPNN
-embedding export, with its two CUDA kernels built from this checkout.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC DMPNN
+training and embedding export, and the kernel bench, with the port's
+four CUDA kernels built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
 Phases (any failure raises and the script exits non-zero):
   0 device   require CUDA; print nvidia-smi's name and power limit, the
              torch and CUDA versions;
-  1 build    nvcc-build the segment kernels and g++-build the host
-             sampler; print the seconds each took and which sampler runs;
-  2 kernels  each kernel against its plain PyTorch version on the card
-             (f32 and bf16, widths 1/50/101/128, a hub row of 5,000
-             edges, empty rows, a pad tail), then both timed with CUDA
-             events at the export path's shapes;
+  1 build    nvcc-build the two kernel libraries at once and g++-build
+             the host sampler; print the seconds each took;
+  2 kernels  each kernel against its plain PyTorch version on the card:
+             K1/K2 in f32 and bf16, widths 1/50/101/128, a hub row of
+             5,000 edges, empty rows, a pad tail; K3 and K4 at the kernel
+             bench's four sizes; the three autograd Functions' gradients
+             at the training path's shapes against the same Functions on
+             the CPU (plain versions). Then each kernel and its plain
+             version timed with CUDA events at the path's shapes (K1 also
+             at width 101, the receiver cotangent);
   3 model    one sampled PubMed-scale batch through the model on the card
              and on the CPU (plain kernel versions), f32 and amp bf16;
-  4 serving  export_embeddings over the synthetic PubMed-scale HIN (7
-             requests of 40,000 triplets, f32), then once in amp bf16 at
-             the unc_infer envelope (V=65,536, E=524,288, R=3); the kernel
-             launch counts must rise by n_layers per forward.
+  4 serving  export_embeddings in amp bf16 at the unc_infer envelope
+             (V=65,536, E=524,288, R=3); the forward launch counts must
+             rise by n_layers per forward;
+  5 training one PubMed-scale training batch: the loss and every
+             parameter gradient on the card against the CPU, f32 and amp
+             bf16; a torch.profiler trace of three train steps (top device
+             operations); then train_unc at the run.sh configuration with
+             n_epochs=1 (rescaled to 4 epochs of 25 steps, unless the loss
+             rises first) and its f32 export of 7 requests. One line per
+             epoch: loss, host sampling ms, step ms (CUDA events), device
+             busy and idle share. Per step K1 must launch 2 forward and 4
+             backward times and K2 2 and 2; per export request each 2;
+  6 bench    the port's kernel bench (bench/kernel_bench.py) at 5
+             iterations, one JSON line per variant; K3 and K4 launched.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -27,8 +42,10 @@ graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
-in phase 4, its max abs error against the plain version and both times
-(f32, path shapes). The last line is
+(K1, K2: phase 5's training and export, forward and backward; K3, K4:
+phase 6's kernel bench), its max abs error against the plain version
+and both times (f32; path shapes for K1/K2, the bench's largest size for
+K3/K4). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -48,20 +65,29 @@ import numpy as np
 import torch
 
 from dualmessagepassing_tpu_torch import native
+from dualmessagepassing_tpu_torch.bench import kernel_bench
 from dualmessagepassing_tpu_torch.models.layers import MaskedBatchNorm
+from dualmessagepassing_tpu_torch.ops import scatter_kernels as sc
 from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
-from dualmessagepassing_tpu_torch.ops.build import CUDA_KERNELS
+from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
+                                                    build_cuda_kernels)
 from dualmessagepassing_tpu_torch.unc.data import WholeGraph, save_embeddings
 from dualmessagepassing_tpu_torch.unc.driver import (export_embeddings,
-                                                     sample_batch, to_device)
+                                                     make_unc_optimizer,
+                                                     make_unc_train_step,
+                                                     sample_batch, to_device,
+                                                     train_unc)
 from dualmessagepassing_tpu_torch.unc.model import (UNCTrainModel,
                                                     apply_unc_forward)
 
 # the reference's UNC DMPNN run.sh (tests/test_reference_commands.py:154)
 N_HIDDEN, N_LAYERS, NEG, GBS = 50, 2, 5, 10000
 SPLIT, DEPTH, WIDTH = 0.5, 3, 10
+LR, REG, GRAD_NORM = 1e-2, 1e-2, 1.0
 # PubMed's published size (SURVEY.md:456)
 PUBMED = dict(num_nodes=63109, num_links=244986, num_rels=10)
+# its envelope: e_max = min(v_max * WIDTH, 2 * num_links)
+PUBMED_E_MAX = 489972
 # bench.py build_unc_infer envelope: V=65,536 and E=524,288 doubled edges
 UNC_INFER = dict(num_nodes=65536, num_links=262144, num_rels=3)
 
@@ -84,6 +110,27 @@ BF16_REL = 2.0 ** -7
 MODEL_F32_ATOL = 2e-5
 MODEL_BF16_ATOL = 1e-2
 MODEL_BF16_MEAN_ATOL = 1e-3
+# K3 (f32 atomics, another order every run) and K4 (K1's kernel) against
+# their plain versions: K1's bound, 2**-20 of each row's absolute sum.
+# The Functions' gradients: the kernels they launch — K2 bitwise, K1 (and
+# its bf16 rounding) as above.
+# Training gradients, card vs CPU, per parameter tensor k: f32 — cuBLAS
+# and the CPU sum in other orders, ~1e-6 relative over the batch's
+# 490k-row reductions, and the biases that feed a BatchNorm have an
+# exact gradient of 0 and return rounding noise only; so
+# max|card - cpu| <= 1e-4 * max|g_cpu[k]| + 1e-5 * max_k max|g_cpu[k]|.
+# amp bf16 — the card and the CPU round to bf16 at different places
+# (tests/test_torch_unc_train.py measures JAX's and the port's amp noise
+# on the CPU); the card's amp gradient may be at most 1.5 times as far
+# from the CPU's f32 gradient as the CPU's amp gradient is, plus one
+# bf16 rounding (2**-8) of the tensor's f32 maximum, per tensor, and 1.5
+# times in L2 over all tensors. The loss: 1e-5 (f32), 1e-3 (amp)
+# relative.
+TRAIN_F32_REL, TRAIN_F32_GLOBAL = 1e-4, 1e-5
+TRAIN_AMP_FACTOR = 1.5
+# per train step with N_LAYERS layers: K1 aggregation, receiver and
+# sender cotangents; K2 receiver gather, aggregation cotangent
+K1_FWD, K1_BWD, K2_FWD, K2_BWD = N_LAYERS, 2 * N_LAYERS, N_LAYERS, N_LAYERS
 
 
 def check(cond: bool, msg: str) -> None:
@@ -120,7 +167,7 @@ def make_model(num_nodes: int, num_rels: int, seed: int) -> UNCTrainModel:
     gen = torch.Generator().manual_seed(seed)
     model = UNCTrainModel(num_nodes, num_rels, N_HIDDEN,
                           num_hidden_layers=N_LAYERS, dropout=0.2,
-                          generator=gen)
+                          reg_param=REG, generator=gen)
     with torch.no_grad():
         for bn in model.modules():
             if isinstance(bn, MaskedBatchNorm):
@@ -211,7 +258,7 @@ def phase_kernels(dev, rng) -> dict:
 
         # timing at the export path's shapes: E = e_max of the PubMed
         # envelope, all real; K1 H = 50, K2 width 2H+1 = 101
-        v, e = PUBMED["num_nodes"], 489972
+        v, e = PUBMED["num_nodes"], PUBMED_E_MAX
         timed = {}
         for dtype in (torch.float32, torch.bfloat16):
             recv = np.sort(rng.integers(0, v, e))
@@ -228,32 +275,161 @@ def phase_kernels(dev, rng) -> dict:
             k1 = cuda_median_ms(lambda: sk.segment_sum_sorted(msg, row_ptr))
             k1p = cuda_median_ms(
                 lambda: sk.segment_sum_sorted_plain(msg, row_ptr))
+            # the receiver cotangent: K1 over [E, 2H+1] on the same rows
+            wide = torch.from_numpy(rng.normal(
+                size=(e, 2 * N_HIDDEN + 1)).astype(np.float32)).to(dev, dtype)
+            k1w_err = check_k1(wide, row_ptr, (0, 0))
+            k1w = cuda_median_ms(lambda: sk.segment_sum_sorted(wide, row_ptr))
+            k1wp = cuda_median_ms(
+                lambda: sk.segment_sum_sorted_plain(wide, row_ptr))
+            del wide
             k2 = cuda_median_ms(lambda: sk.gather_rows_sorted(table, idx, e))
             k2p = cuda_median_ms(
                 lambda: sk.gather_rows_sorted_plain(table, idx, e))
             name = str(dtype)[6:]
             print(f"timing {name}: K1 segment_sum_sorted E={e} V={v} "
                   f"H={N_HIDDEN}: kernel {k1:.4f} ms, plain {k1p:.4f} ms")
+            print(f"timing {name}: K1 segment_sum_sorted E={e} V={v} "
+                  f"W={2 * N_HIDDEN + 1}: kernel {k1w:.4f} ms, "
+                  f"plain {k1wp:.4f} ms (max abs err {k1w_err:.3e})")
             print(f"timing {name}: K2 gather_rows_sorted E={e} V={v} "
                   f"W={2 * N_HIDDEN + 1}: kernel {k2:.4f} ms, "
                   f"plain {k2p:.4f} ms")
             timed[name] = dict(k1=k1, k1p=k1p, k2=k2, k2p=k2p,
-                               k1_err=k1_err, k2_err=k2_err)
+                               k1_err=k1_err, k2_err=k2_err, k1w=k1w,
+                               k1wp=k1wp)
     return timed
+
+
+def check_sum(name: str, got, want, abs_sum) -> float:
+    """got against want within K1_ABS_SUM_TOL of each row's absolute sum."""
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= K1_ABS_SUM_TOL * abs_sum).all()),
+          f"{name}: max err {err.max().item()} exceeds the stated bound")
+    return err.max().item()
+
+
+def phase_scatter_kernels(dev) -> dict:
+    """K3 and K4 against their plain versions at the kernel bench's four
+    sizes (H = 64; K3 also in bf16), both timed at the largest."""
+    with torch.inference_mode():
+        for spec in kernel_bench.DEFAULT_SIZES.split(","):
+            v, e = (int(t) for t in spec.split("x"))
+            x = kernel_bench.make_inputs(v, e, 64, 0, dev)
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                m = x["msg"].to(dtype)
+                abs_sum = sc.segment_sum_unsorted_plain(m.float().abs(),
+                                                        x["recv"], v)
+                errs[f"K3 {str(dtype)[6:]}"] = check_sum(
+                    f"K3 {dtype} {spec}",
+                    sc.segment_sum_unsorted(m, x["recv"], v),
+                    sc.segment_sum_unsorted_plain(m, x["recv"], v), abs_sum)
+            abs_sum = sc.csr_segment_sum_plain(x["msg_sorted"].abs(),
+                                               x["row_ptr"])
+            errs["K4 float32"] = check_sum(
+                f"K4 {spec}", sc.csr_segment_sum(x["msg_sorted"],
+                                                 x["row_ptr"]),
+                sc.csr_segment_sum_plain(x["msg_sorted"], x["row_ptr"]),
+                abs_sum)
+            torch.cuda.synchronize()
+            print(f"kernels: V={v} E={e} H=64 " + ", ".join(
+                f"{k} max abs err {val:.3e}" for k, val in errs.items())
+                + " (within bound)")
+        timed = dict(
+            size=spec, k3_err=errs["K3 float32"], k4_err=errs["K4 float32"],
+            k3=cuda_median_ms(
+                lambda: sc.segment_sum_unsorted(x["msg"], x["recv"], v)),
+            k3p=cuda_median_ms(lambda: sc.segment_sum_unsorted_plain(
+                x["msg"], x["recv"], v)),
+            k4=cuda_median_ms(
+                lambda: sc.csr_segment_sum(x["msg_sorted"], x["row_ptr"])),
+            k4p=cuda_median_ms(lambda: sc.csr_segment_sum_plain(
+                x["msg_sorted"], x["row_ptr"])))
+    for k in ("k3", "k4"):
+        print(f"timing float32: {k.upper()} V={v} E={e} H=64: kernel "
+              f"{timed[k]:.4f} ms, plain {timed[k + 'p']:.4f} ms")
+    return timed
+
+
+def phase_functions(dev, rng) -> None:
+    """The three autograd Functions at the training path's shapes (E =
+    e_max with a pad tail, V = PubMed, gathers of width 2H+1, the
+    aggregation of width H): gradients on the card (kernels) against
+    the same Functions on the CPU (plain versions), f32 and bf16."""
+    v, e, pad = PUBMED["num_nodes"], PUBMED_E_MAX, PUBMED_E_MAX // 25
+    n_real, w = e - pad, 2 * N_HIDDEN + 1
+    recv = np.sort(rng.integers(0, v, n_real))
+    recv_padded = np.concatenate([recv, np.full(pad, recv[-1])])
+    row_ptr = np.searchsorted(recv, np.arange(v + 1)).astype(np.int32)
+    senders = np.concatenate([rng.integers(0, v, n_real),
+                              np.zeros(pad, np.int64)])
+    order = np.argsort(senders, kind="stable")
+    order = order[order < n_real]           # attach_csr_plan's sk2_order
+    sk2 = np.searchsorted(senders[order], np.arange(v + 1)).astype(np.int32)
+    table = rng.normal(size=(v, w)).astype(np.float32)
+    g_rows = rng.normal(size=(e, w)).astype(np.float32)
+    g_rows[n_real:] = 0                     # as the model's pad rows are
+    msg = rng.normal(size=(e, N_HIDDEN)).astype(np.float32)
+    msg[n_real:] = 0
+    g_nodes = rng.normal(size=(v, N_HIDDEN)).astype(np.float32)
+    cases = {
+        "GatherRowsSorted": (lambda d: lambda t: sk.GatherRowsSorted.apply(
+            t, d["recv"], n_real, d["rp"]), table, g_rows),
+        "GatherRowsPerm": (lambda d: lambda t: sk.GatherRowsPerm.apply(
+            t, d["senders"], d["order"], d["sk2"]), table, g_rows),
+        "SegmentSumSorted": (lambda d: lambda t: sk.SegmentSumSorted.apply(
+            t, d["rp"], d["recv"], n_real), msg, g_nodes),
+    }
+    # K1's bound needs each row's absolute sum of the cotangent it sums
+    abs_sums = {
+        "GatherRowsSorted": sk.segment_sum_sorted_plain(
+            torch.from_numpy(np.abs(g_rows)), torch.from_numpy(row_ptr)),
+        "GatherRowsPerm": sk.segment_sum_sorted_plain(
+            torch.from_numpy(np.abs(g_rows[order])), torch.from_numpy(sk2))}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (make, x, g) in cases.items():
+            grads = {}
+            for device in ("cpu", dev):
+                t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+                d = dict(recv=t(recv_padded), rp=t(row_ptr),
+                         senders=t(senders), order=t(order), sk2=t(sk2))
+                xin = t(x).to(dtype).requires_grad_()
+                make(d)(xin).backward(t(g).to(dtype))
+                grads[device] = xin.grad
+            torch.cuda.synchronize()
+            got, want = grads[dev].cpu(), grads["cpu"]
+            check(got.dtype == dtype, f"{name} gradient dtype {got.dtype}")
+            if name not in abs_sums:        # backward is K2: a gather
+                check(torch.equal(got, want),
+                      f"{name} {dtype}: gradient not bitwise equal")
+                err = 0.0
+            else:
+                bound = K1_ABS_SUM_TOL * abs_sums[name]
+                if dtype == torch.bfloat16:
+                    bound = bound + BF16_REL * torch.maximum(
+                        got.float().abs(), want.float().abs())
+                diff = (got.float() - want.float()).abs()
+                check(bool((diff <= bound).all()),
+                      f"{name} {dtype}: gradient max err {diff.max().item()}"
+                      " exceeds the stated bound")
+                err = diff.max().item()
+            print(f"functions: {name} {str(dtype)[6:]} gradient card vs "
+                  f"cpu max abs err {err:.3e} (within bound)")
 
 
 # --- phase 3: model on the card against the CPU ---------------------------
 
-def phase_model(model, graph, triplets, seed) -> None:
+def phase_model(model, graph, triplets, seed, dev) -> None:
     padded = sk.attach_csr_plan(sample_batch(
         graph, triplets[: 4 * GBS], "randomwalk", DEPTH, WIDTH, SPLIT, NEG,
         graph.num_nodes, min(graph.num_nodes * WIDTH, graph.num_edges),
         4 * GBS * (1 + NEG), np.random.default_rng(seed)))
     nm = torch.from_numpy(padded["node_mask"])
     cpu_model = copy.deepcopy(model).cpu()
-    dev_model = copy.deepcopy(model).cuda()
+    dev_model = copy.deepcopy(model).to(dev)
     sub_cpu = to_device(padded, "cpu")
-    sub_dev = to_device(padded, "cuda")
+    sub_dev = to_device(padded, dev)
     for amp in (False, True):
         with torch.inference_mode():
             h_cpu = apply_unc_forward(cpu_model, sub_cpu, amp=amp)[0]
@@ -274,6 +450,199 @@ def phase_model(model, graph, triplets, seed) -> None:
                   "f32 forward on the card disagrees with the CPU")
 
 
+# --- phase 5: training ----------------------------------------------------
+
+def train_batch(graph, triplets, seed) -> dict:
+    """One sampled training batch of GBS triplets with both CSR plans."""
+    v = graph.num_nodes
+    return sk.attach_csr_plan(sample_batch(
+        graph, triplets[:GBS], "randomwalk", DEPTH, WIDTH, SPLIT, NEG, v,
+        min(v * WIDTH, graph.num_edges), GBS * (1 + NEG),
+        np.random.default_rng(seed), send_keys=True), sender_plan=True)
+
+
+def loss_and_grads(model, sub, amp):
+    """Loss and float32 gradients (on the CPU) of one train-mode forward
+    of a copy of `model` (train mode updates its BN statistics)."""
+    model = copy.deepcopy(model)
+    out = apply_unc_forward(model, sub, amp=amp, train=True)
+    loss = model.unsupervised_loss(
+        out, sub["edge_type"], sub["edge_mask"], sub["samples"],
+        sub["labels"], sub["sample_mask"], sub["node_mask"])
+    loss.backward()
+    return loss.item(), {k: p.grad.detach().float().cpu()
+                         for k, p in model.named_parameters()}
+
+
+def phase_train_grads(model, graph, triplets, seed, dev) -> dict:
+    padded = train_batch(graph, triplets, seed)
+    cpu_model = copy.deepcopy(model).cpu()
+    dev_model = copy.deepcopy(model).to(dev)
+    sub_cpu, sub_dev = to_device(padded, "cpu"), to_device(padded, dev)
+    res = {(where, amp): loss_and_grads(m, sub, amp)
+           for where, m, sub in (("cpu", cpu_model, sub_cpu),
+                                 ("card", dev_model, sub_dev))
+           for amp in (False, True)}
+    torch.cuda.synchronize()
+    print(f"train grads: batch of {GBS} triplets, n_real "
+          f"{padded['n_real']}, {int(padded['node_mask'].sum())} nodes")
+    f32 = res[("cpu", False)][1]
+    gmax = max(g.abs().max().item() for g in f32.values())
+
+    def dist(a, b):
+        return sum(((a[k] - b[k]) ** 2).sum().item() for k in a) ** 0.5
+
+    worst = {}
+    for amp in (False, True):
+        (lc, gc), (ld, gd) = res[("cpu", amp)], res[("card", amp)]
+        check(np.isfinite(ld), "non-finite loss on the card")
+        check(abs(ld - lc) <= (1e-3 if amp else 1e-5) * abs(lc),
+              f"loss card {ld} vs cpu {lc} (amp={amp})")
+        ratio = 0.0
+        for k in gc:
+            check(bool(torch.isfinite(gd[k]).all()), f"non-finite grad {k}")
+            scale = f32[k].abs().max().item()
+            if amp:
+                card = (gd[k] - f32[k]).abs().max().item()
+                cpu = (gc[k] - f32[k]).abs().max().item()
+                bound = TRAIN_AMP_FACTOR * cpu + 2.0 ** -8 * scale
+                err = card
+            else:
+                err = (gd[k] - gc[k]).abs().max().item()
+                bound = TRAIN_F32_REL * scale + TRAIN_F32_GLOBAL * gmax
+            check(err <= bound, f"{k} (amp={amp}): card err {err:.3e} "
+                  f"exceeds {bound:.3e}")
+            ratio = max(ratio, err / bound)
+        if amp:
+            l2_card, l2_cpu = dist(gd, f32), dist(gc, f32)
+            check(l2_card <= TRAIN_AMP_FACTOR * l2_cpu,
+                  f"amp gradient L2 distance {l2_card} vs cpu {l2_cpu}")
+        name = "amp bf16" if amp else "f32"
+        worst[name] = ratio
+        print(f"train grads {name}: loss card {ld:.7f} cpu {lc:.7f}; "
+              f"{len(gc)} gradients within bound (worst at "
+              f"{ratio:.3f} of it)" + (
+                  f"; L2 to cpu f32: card {l2_card:.3e}, cpu amp "
+                  f"{l2_cpu:.3e}" if amp else ""))
+    return worst
+
+
+def _device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def _device_events(prof) -> list:
+    """The device-side events (kernels, copies, sets) of a trace; the
+    operator events above them carry the same time again."""
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if getattr(e, "device_type", None) == cuda]
+    return kernels or events
+
+
+def phase_profile(model, graph, triplets, seed, dev) -> dict:
+    """Three train steps of a copy of the model under torch.profiler, f32
+    and amp bf16: device time per step and the top device operations;
+    then five steps timed with CUDA events."""
+    sub = to_device(train_batch(graph, triplets, seed), dev)
+    out = {}
+    for amp in (False, True):
+        m = copy.deepcopy(model).to(dev)
+        step = make_unc_train_step(
+            m, make_unc_optimizer(m, LR, 100, GRAD_NORM), amp=amp)
+        step(sub)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                step(sub)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 3
+        events = _device_events(prof)
+        total = sum(_device_us(e) for e in events) / 3e3
+        name = "amp bf16" if amp else "f32"
+        print(f"profile {name}: {total:.3f} ms device time per train step "
+              f"(torch.profiler, 3 steps), {wall:.3f} ms wall per step")
+        for e in sorted(events, key=_device_us, reverse=True)[:12]:
+            ms = _device_us(e) / 3e3
+            print(f"profile {name}:   {ms:8.4f} ms {100 * ms / total:5.1f} % "
+                  f"x{e.count // 3:<4d} {e.key[:90]}")
+        step_ms = cuda_median_ms(lambda: step(sub), runs=5, warmup=0)
+        print(f"profile {name}: train step {step_ms:.3f} ms (CUDA events, "
+              "median of 5)")
+        out[name] = dict(device_ms=total, wall_ms=wall, step_ms=step_ms)
+    return out
+
+
+def phase_train(model, triplets, seed) -> dict:
+    """train_unc at the run.sh configuration, n_epochs=1, then its f32
+    export; the launch counts of the whole run."""
+    epochs, requests = [], []
+
+    def on_epoch(rec):
+        steps = rec["step_ms"]
+        busy = sum(steps) / rec["wall_ms"]
+        epochs.append(rec)
+        print(f"train epoch {rec['epoch']}: loss {rec['loss']:.6f}, "
+              f"{rec['steps']} steps, host sampling "
+              f"{statistics.median(rec['sample_ms']):.1f} ms median per "
+              f"batch (2 threads), main loop waited "
+              f"{sum(rec['wait_ms']):.1f} ms, step "
+              f"{statistics.median(steps):.3f} ms median "
+              f"({min(steps):.3f}-{max(steps):.3f}, CUDA events), epoch "
+              f"{rec['wall_ms']:.1f} ms wall: device busy {100 * busy:.2f} "
+              f"%, idle {100 * (1 - busy):.2f} %")
+
+    def on_request(rec):
+        requests.append(rec)
+        print(f"serve f32 request {rec['request']}: forward "
+              f"{rec['forward_ms']:.3f} ms (CUDA events), host sampling "
+              f"{rec['sample_ms']:.1f} ms, {rec['n_real']} edges, "
+              f"{rec['n_nodes']} nodes, coverage {rec['coverage']:.4f}")
+
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb, cov = train_unc(
+        model, triplets, PUBMED["num_nodes"], PUBMED["num_rels"], lr=LR,
+        negative_rate=NEG, graph_batch_size=GBS, graph_split_size=SPLIT,
+        sampler="randomwalk", sample_depth=DEPTH, sample_width=WIDTH,
+        n_epochs=1, grad_norm=GRAD_NORM, seed=seed, on_epoch=on_epoch,
+        on_request=on_request, log=lambda s: print(f"train: {s}"))
+    launches = dict(sk.LAUNCHES)
+    wall = time.perf_counter() - t0
+    steps = sum(rec["steps"] for rec in epochs)
+    n_req = len(requests)
+    check(all(np.isfinite(rec["losses"]).all() for rec in epochs),
+          "non-finite training loss")
+    want_req = -(-PUBMED["num_links"] // (4 * GBS))     # 7 at PubMed size
+    check(n_req == want_req, f"{n_req} export requests, expected {want_req}")
+    want = {"segment_sum_sorted:fwd": K1_FWD * (steps + n_req),
+            "segment_sum_sorted:bwd": K1_BWD * steps,
+            "gather_rows_sorted:fwd": K2_FWD * (steps + n_req),
+            "gather_rows_sorted:bwd": K2_BWD * steps}
+    check(launches == want, f"launches {launches}, expected {want} for "
+          f"{steps} steps and {n_req} export forwards")
+    check(emb.shape == (PUBMED["num_nodes"], N_HIDDEN), "embedding shape")
+    check(bool(np.isfinite(emb).all()), "non-finite embeddings")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "emb.dat")
+        save_embeddings(path, "chip_smoke synthetic PubMed", emb)
+        with open(path) as f:
+            n_lines = sum(1 for _ in f)
+    check(n_lines == PUBMED["num_nodes"] + 1, f"emb.dat has {n_lines} lines")
+    print(f"train: {len(epochs)} epochs, {steps} steps, {n_req} export "
+          f"requests in {wall:.1f} s wall; coverage {cov:.4f}, emb.dat "
+          f"{n_lines} lines; launches {launches} (as counted: per step K1 "
+          f"{K1_FWD} fwd + {K1_BWD} bwd, K2 {K2_FWD} fwd + {K2_BWD} bwd; "
+          f"per export forward {N_LAYERS} each)")
+    return launches
+
+
 # --- phase 4: serving -----------------------------------------------------
 
 def run_export(model, graph, triplets, gbs, amp, seed, label):
@@ -283,7 +652,7 @@ def run_export(model, graph, triplets, gbs, amp, seed, label):
     def on_request(rec):
         launches = dict(sk.LAUNCHES)
         prev = records[-1]["launches"] if records else start
-        for name in ("segment_sum_sorted", "gather_rows_sorted"):
+        for name in ("segment_sum_sorted:fwd", "gather_rows_sorted:fwd"):
             rise = launches.get(name, 0) - prev.get(name, 0)
             check(rise == N_LAYERS,
                   f"{name} launched {rise} times in one forward, "
@@ -330,12 +699,15 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # phase 1: build
-    CUDA_KERNELS.load()
-    print(f"build: segment kernels (nvcc sm_90a) "
-          f"{CUDA_KERNELS.build_seconds:.2f} s")
-    for line in CUDA_KERNELS.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"build: ptxas {line.strip()}")
+    t0 = time.perf_counter()
+    wall = build_cuda_kernels()
+    for lib in ALL_CUDA_KERNELS:
+        print(f"build: {lib.src.name} (nvcc sm_90a) "
+              f"{lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: ptxas {line.strip()}")
+    print(f"build: CUDA libraries {wall:.2f} s wall, built at once")
     t0 = time.perf_counter()
     sampler = "native" if native.available() else "numpy"
     print(f"build: host sampler ({sampler}) {time.perf_counter() - t0:.2f} s")
@@ -343,6 +715,8 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(args.seed)
     timed = phase_kernels(dev, rng)
+    timed_sc = phase_scatter_kernels(dev)
+    phase_functions(dev, rng)
 
     # phase 3: the model on the card against the model on the CPU
     t0 = time.perf_counter()
@@ -353,52 +727,76 @@ def main() -> int:
           f"max in-degree {graph.in_deg.max()}, "
           f"{time.perf_counter() - t0:.1f} s")
     model = make_model(PUBMED["num_nodes"], PUBMED["num_rels"], args.seed)
-    phase_model(model, graph, triplets, args.seed + 1)
+    phase_model(model, graph, triplets, args.seed + 1, dev)
 
-    # phase 4: serving — the main path, counted from zero
-    model = model.to(dev)
-    sk.reset_launch_counts()
-    emb, cov, recs = run_export(model, graph, triplets, GBS, False,
-                                args.seed + 2, "f32")
-    check(len(recs) == 7, f"{len(recs)} export requests, expected 7")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "emb.dat")
-        save_embeddings(path, "chip_smoke synthetic PubMed", emb)
-        with open(path) as f:
-            n_lines = sum(1 for _ in f)
-    check(n_lines == graph.num_nodes + 1, f"emb.dat has {n_lines} lines")
-    print(f"serve f32: coverage {cov:.4f}, emb.dat {n_lines} lines")
-
+    # phase 4: serving at the unc_infer envelope, counted from zero
     inf_triplets = synthetic_hin(rng=rng, **UNC_INFER)
     inf_graph = WholeGraph(UNC_INFER["num_nodes"], UNC_INFER["num_rels"],
                            inf_triplets)
     inf_model = make_model(UNC_INFER["num_nodes"], UNC_INFER["num_rels"],
                            args.seed + 3).to(dev)
+    sk.reset_launch_counts()
     _, _, inf_recs = run_export(
         inf_model, inf_graph, inf_triplets, UNC_INFER["num_links"] // 4,
         True, args.seed + 4, "amp-bf16 unc_infer")
     check(len(inf_recs) == 1, "unc_infer export is one request")
     launches = dict(sk.LAUNCHES)
-    n_forwards = len(recs) + len(inf_recs)
-    for name in ("segment_sum_sorted", "gather_rows_sorted"):
-        check(launches.get(name, 0) == N_LAYERS * n_forwards,
-              f"{name}: {launches.get(name, 0)} launches in the main path, "
-              f"expected {N_LAYERS * n_forwards}")
-    print(f"serve: {n_forwards} forwards, launches {launches}, total "
+    check(launches == {"segment_sum_sorted:fwd": N_LAYERS,
+                       "gather_rows_sorted:fwd": N_LAYERS},
+          f"unc_infer launches {launches}")
+    print(f"serve: launches {launches}")
+    del inf_model, inf_graph, inf_triplets
+
+    # phase 5: training — the main path, counted from zero
+    phase_train_grads(model, graph, triplets, args.seed + 5, dev)
+    phase_profile(model, graph, triplets, args.seed + 6, dev)
+    model = model.to(dev)
+    train_launches = phase_train(model, triplets, args.seed + 2)
+
+    # phase 6: the kernel bench, counted from zero
+    sk.reset_launch_counts()
+    kernel_bench.run(kernel_bench.DEFAULT_SIZES, iters=5,
+                     print_fn=lambda line: print(f"bench: {line}"))
+    bench_launches = dict(sk.LAUNCHES)
+    per_size = 1 + 3 + 5        # check, warm-up, timed
+    n_sizes = len(kernel_bench.DEFAULT_SIZES.split(","))
+    for name in ("segment_sum_unsorted", "csr_segment_sum"):
+        check(bench_launches.get(name, 0) == per_size * n_sizes,
+              f"bench launched {name} {bench_launches.get(name, 0)} times")
+    print(f"bench: launches {bench_launches}; total "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
 
     f32 = timed["float32"]
     src = "dualmessagepassing_tpu_torch/csrc/segment_kernels.cu"
+
+    def k12(name, replaces, err, ms, plain_ms, extra):
+        fwd = train_launches[name + ":fwd"]
+        bwd = train_launches[name + ":bwd"]
+        return dict({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": fwd + bwd,
+                     "launches_fwd": fwd, "launches_bwd": bwd,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
+                    **extra)
+
     print(json.dumps({"kernels": [
-        {"name": "segment_sum_sorted", "route": "cuda", "source": src,
-         "replaces": "dualmessagepassing_tpu/ops/segment_kernel.py:261",
-         "launches": launches["segment_sum_sorted"],
-         "max_abs_err": f32["k1_err"], "ms": f32["k1"],
-         "plain_ms": f32["k1p"]},
-        {"name": "gather_rows_sorted", "route": "cuda", "source": src,
-         "replaces": "dualmessagepassing_tpu/ops/segment_kernel.py:572",
-         "launches": launches["gather_rows_sorted"],
-         "max_abs_err": f32["k2_err"], "ms": f32["k2"], "plain_ms": f32["k2p"]},
+        k12("segment_sum_sorted",
+            "dualmessagepassing_tpu/ops/segment_kernel.py:261",
+            f32["k1_err"], f32["k1"], f32["k1p"],
+            {"ms_w101": f32["k1w"], "plain_ms_w101": f32["k1wp"]}),
+        k12("gather_rows_sorted",
+            "dualmessagepassing_tpu/ops/segment_kernel.py:572",
+            f32["k2_err"], f32["k2"], f32["k2p"], {}),
+        {"name": "segment_sum_unsorted", "route": "cuda",
+         "source": "dualmessagepassing_tpu_torch/csrc/scatter_kernels.cu",
+         "replaces": "dualmessagepassing_tpu/ops/pallas_scatter.py:109",
+         "launches": bench_launches["segment_sum_unsorted"],
+         "max_abs_err": timed_sc["k3_err"], "ms": timed_sc["k3"],
+         "plain_ms": timed_sc["k3p"], "size": timed_sc["size"]},
+        {"name": "csr_segment_sum", "route": "cuda", "source": src,
+         "replaces": "dualmessagepassing_tpu/ops/pallas_scatter.py:225",
+         "launches": bench_launches["csr_segment_sum"],
+         "max_abs_err": timed_sc["k4_err"], "ms": timed_sc["k4"],
+         "plain_ms": timed_sc["k4p"], "size": timed_sc["size"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,10 +7,13 @@ and the standard library only — never jax, flax, optax, orbax, sklearn
 or dualmessagepassing_tpu — so it runs on a machine that has none of
 them.
 
-Slice 1 covers the UNC DMPNN embedding-export serving path: host
-sampling (unc/data.py, native.py), the model forward (unc/model.py) and
-the export loop (unc/driver.py). Its two TPU kernels, the windowed
-segment-sum and the windowed row-broadcast, are CUDA C++ kernels
-(csrc/segment_kernels.cu, ops/segment_kernel.py), built with nvcc at
-first use.
+Slices 1 and 2 cover the UNC DMPNN main path on one GPU: host sampling
+(unc/data.py, native.py), the model with its loss (unc/model.py),
+training and the embedding export (unc/driver.py, train/checkpoint.py,
+cli/unc_train.py). Every TPU kernel of the JAX package is a CUDA C++
+kernel built with nvcc at first use: the windowed segment-sum and
+row-broadcast (csrc/segment_kernels.cu, ops/segment_kernel.py), each
+the other's backward in training, and the two experimental scatter
+kernels (csrc/scatter_kernels.cu, ops/scatter_kernels.py) that the
+kernel bench (bench/kernel_bench.py) runs.
 """

@@ -35,7 +35,20 @@
 //     warps read the same or adjacent rows. The copy moves raw bits, so
 //     the result is bitwise equal to table[idx] for f32 and bf16.
 //
-// Both launchers take PyTorch's current stream, allocate nothing, and
+// In training the two kernels are each other's backward, as in the JAX
+// package (_v5_call_b; _take_rows_bcast, _take_rows_win_perm): K1 sums
+// the cotangents of the receiver gather (on the receiver row pointer) and
+// of the sender gather (on a sender-sorted row pointer), and K2 gathers
+// the aggregation's cotangent back onto the edges.
+//
+// K4  dmp_csr_segment_sum: the CSR row-tiled segment-sum of
+//     dualmessagepassing_tpu/ops/pallas_scatter.py (_csr_kernel, launched
+//     by pallas_csr_segment_sum) computes exactly what K1 computes in
+//     float32 on a sorted stream with a row pointer; on Hopper it is K1's
+//     kernel behind an entry of its own (f32 only, as the TPU kernel),
+//     so that its launches are counted apart.
+//
+// The launchers take PyTorch's current stream, allocate nothing, and
 // return cudaGetLastError() so the Python wrapper can raise on a refused
 // launch. An index outside its table, or a row pointer outside the
 // stream, traps the kernel (a device-side fault reported at the next
@@ -151,6 +164,15 @@ extern "C" int dmp_segment_sum_sorted(const void* msg, const void* row_ptr,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K4: float32 only. Returns a cudaError_t as int.
+extern "C" int dmp_csr_segment_sum(const void* msg, const void* row_ptr,
+                                   void* out, int64_t n_rows, int64_t width,
+                                   int64_t n_edges, int device,
+                                   void* stream) {
+  return dmp_segment_sum_sorted(msg, row_ptr, out, n_rows, width, n_edges,
+                                0, device, stream);
 }
 
 // elem_bytes: 4 (float32) or 2 (bfloat16). Returns a cudaError_t as int.

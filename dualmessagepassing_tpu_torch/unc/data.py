@@ -7,9 +7,8 @@ package cannot be imported on a machine without jax, since its
 __init__ imports jax and flax. The arrays are identical to the JAX
 package's under the same np.random.Generator (tests/test_torch_unc_data.py).
 The supervised helpers (load_supervised, load_label, labeled edge
-sampling) are not part of this slice, nor are the TPU-only padding keys
-(the sender sort of pad_subgraph(send_keys=True) and the fused-endpoint
-pair keys).
+sampling) are not part of this slice, nor is the TPU-only fused-endpoint
+gather's add_pair_keys.
 
 Reference: HKUST-KnowComp/DualMessagePassing,
 UnsupervisedNodeClassification/Model/DMPNN/src/utils.py (loaders 168-240, samplers 279-434, negative sampling 539-551,
@@ -255,8 +254,8 @@ def compute_edgenorm(sub: Dict[str, np.ndarray], norm: str = "in") -> np.ndarray
 
 def pad_subgraph(sub: Dict[str, np.ndarray], samples: np.ndarray,
                  labels: np.ndarray, v_max: int, e_max: int, s_max: int,
-                 edge_norm: Optional[np.ndarray] = None
-                 ) -> Dict[str, np.ndarray]:
+                 edge_norm: Optional[np.ndarray] = None,
+                 send_keys: bool = False) -> Dict[str, np.ndarray]:
     """Pad a sampled subgraph + DistMult samples to static shapes.
 
     samples are (src, rel, dst) with subgraph-local node ids. Overflow of
@@ -264,9 +263,11 @@ def pad_subgraph(sub: Dict[str, np.ndarray], samples: np.ndarray,
     the tail keeping the last receiver id; every per-edge array carries
     the same permutation. The segment kernels rely on that order
     (ops/segment_kernel.attach_csr_plan). `out_deg` holds the global
-    out-degrees. The output equals the JAX package's
-    pad_subgraph(send_keys=False): the sender-sort keys serve only the
-    TPU training path's sender cotangent.
+    out-degrees. send_keys=True (training) adds the sender sort that the
+    sender gather's backward runs on: send_order, a stable argsort of the
+    padded senders (pads carry sender 0), and senders_sorted. The output
+    equals the JAX package's pad_subgraph with the same send_keys; the
+    default is the export path's False (the JAX default is True).
     """
     n_v = len(sub["nid"])
     n_e = len(sub["senders"])
@@ -302,4 +303,8 @@ def pad_subgraph(sub: Dict[str, np.ndarray], samples: np.ndarray,
             [edge_norm[order], np.zeros((e_max - n_e, 1), np.float32)], axis=0)
     out["out_deg"] = np.bincount(
         sub["senders"], minlength=v_max).astype(np.float32)
+    if send_keys:
+        send_order = np.argsort(out["senders"], kind="stable")
+        out["send_order"] = send_order
+        out["senders_sorted"] = out["senders"][send_order]
     return out

@@ -1,6 +1,8 @@
-"""UNC DMPNN forward in PyTorch (dualmessagepassing_tpu/unc/model.py:
-UpdateMLP2 407, DualGraphConv 429, UNCDMPNN 667, _input_embeddings 955,
-UNCTrainModel 998, apply_unc_forward 1176).
+"""UNC DMPNN in PyTorch (dualmessagepassing_tpu/unc/model.py:
+_onehot_rows 329, UpdateMLP2 407, DualGraphConv 429, UNCDMPNN 667,
+_input_embeddings 955, UNCTrainModel 998 with its DistMult loss and
+regularisers, apply_unc_forward 1176, _masked_mean_sq 1239,
+optax_sigmoid_bce 1248).
 
 Reference: HKUST-KnowComp/DualMessagePassing,
 UnsupervisedNodeClassification/Model/DMPNN/src/model.py (DualGraphConv 117-280, DMPNN 283-328, TrainModel 632-737).
@@ -25,17 +27,21 @@ Port notes:
   * The layer has one composition. Every lowering choice of the JAX
     layer (scatter_backend, pad_cols, recv_bcast, sender_windowed,
     sorted_edges, the fused endpoint gather) computes the same numbers
-    and is tested equal to its plain path, so none exists here: the
-    receiver gather of the [V, 2H+1] endpoint table is K2, the node
-    aggregation is K1 (ops/segment_kernel.py), the sender gather is a
-    plain index_select. Both kernels need the host CSR plan
-    (sk_rowptr, n_real: ops/segment_kernel.attach_csr_plan).
+    and is tested equal to its plain path, so none exists here. The
+    layer runs through the autograd pairings of ops/segment_kernel.py:
+    the receiver gather of the [V, 2H+1] endpoint table is K2 (backward
+    K1), the node aggregation is K1 (backward K2), and the sender gather
+    is an index_select whose backward is K1 over the sender row pointer.
+    They need the host CSR plan (sk_rowptr, n_real; for a backward also
+    sk2_order and sk2_rowptr: ops/segment_kernel.attach_csr_plan).
   * K2 returns zero rows for pad edges where a plain gather returns
     table[last receiver]; pad edges are masked everywhere they could
-    reach a real output, so compare valid rows only.
-  * Forward only: the training slice adds the kernels' backward, the
-    DistMult loss and the regularisers. Until then the kernels raise on
-    inputs that require grad.
+    reach a real output, so compare valid rows only. For the same
+    reason every pad edge's cotangent is exactly zero.
+  * Relation rows (the edge-type embedding, w_relation in the score and
+    the regulariser) are looked up as one_hot @ table in float32
+    (_onehot_rows), as the JAX package does: the backward is then a
+    matmul instead of E atomics into 2R rows.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ from torch import nn
 
 from ..constants import LEAKY_RELU_A
 from ..models.layers import MaskedBatchNorm
-from ..ops.segment_kernel import gather_rows_sorted, segment_sum_sorted
+from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
+                                  gather_rows_perm)
 from ..utils.amp import cast_floats
 from ..utils.init import embedding_uniform, scaled, xavier_uniform
 
@@ -63,6 +70,19 @@ def _param(init, shape, generator) -> nn.Parameter:
 
 def _zeros(n: int) -> nn.Parameter:
     return nn.Parameter(torch.zeros(n))
+
+
+def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
+                 clip: bool = False) -> torch.Tensor:
+    """Small-table row lookup as one_hot(idx) @ table, in the table's
+    dtype (unc/model.py:329-350): exact, since each output row has one
+    non-zero product, and its backward is the matmul one_hot.T @ g.
+    `clip` clamps idx into [0, n) on both sides, which XLA's gather does
+    by itself and torch's one_hot refuses to."""
+    n = table.shape[0]
+    if clip:
+        idx = idx.clamp(0, n - 1)
+    return F.one_hot(idx, n).to(table.dtype) @ table
 
 
 def _out_degrees(sub: Sub) -> torch.Tensor:
@@ -154,8 +174,10 @@ class DualGraphConv(nn.Module):
         # (unc/model.py:525 order, for bf16 parity)
         d_col = torch.log2(1.0 + out_deg).to(dt)[:, None]
         cols = torch.cat([node_feat @ w_src, node_feat @ w_dst, d_col], dim=1)
-        at_send = cols.index_select(0, senders)
-        at_recv = gather_rows_sorted(cols, receivers, sub["n_real"])   # K2
+        at_send = gather_rows_perm(cols, senders, sub.get("sk2_order"),
+                                   sub.get("sk2_rowptr"))        # bwd K1
+        at_recv = GatherRowsSorted.apply(                        # K2, bwd K1
+            cols, receivers, sub["n_real"], sub["sk_rowptr"])
         edge_msg = torch.where(
             rev,
             at_send[:, h: 2 * h] - at_recv[:, :h],
@@ -167,7 +189,8 @@ class DualGraphConv(nn.Module):
             # edge_norm stays a float32 input; follow the compute dtype
             node_msg = node_msg * edge_norm.to(dt)
         node_msg = torch.where(e_mask[:, None], node_msg, 0.0)
-        agg = segment_sum_sorted(node_msg, sub["sk_rowptr"])          # K1
+        agg = SegmentSumSorted.apply(                            # K1, bwd K2
+            node_msg, sub["sk_rowptr"], receivers, sub["n_real"])
 
         n_out = node_feat @ self.nloop_weight.to(dt) + agg
         if self.use_bias:
@@ -209,10 +232,11 @@ class UNCDMPNN(nn.Module):
 
     def input_embeddings(self, sub: Sub, dtype: torch.dtype):
         """EmbeddingLayer on the learned-embedding branch
-        (unc/model.py:979-994): rows gathered from the float32 tables,
-        then cast to the compute dtype."""
+        (unc/model.py:979-994): node rows gathered from the float32 table
+        (nid holds distinct ids, so the backward sums nothing), relation
+        rows through _onehot_rows; both cast to the compute dtype."""
         h = self.node_emb[sub["nid"]].to(dtype)
-        z = self.rel_emb[sub["edge_type"]].to(dtype)
+        z = _onehot_rows(self.rel_emb, sub["edge_type"]).to(dtype)
         return h, z
 
     def forward(self, sub: Sub, train: bool = False,
@@ -243,16 +267,18 @@ class UNCDMPNN(nn.Module):
 
 class UNCTrainModel(nn.Module):
     """DistMult link-prediction model around the DMPNN backbone
-    (model.py:632-737), forward only in this slice. It holds w_relation
-    and edge_fc so that the whole JAX parameter tree maps onto it; the
-    loss, the regularisers and the supervised head come with training."""
+    (model.py:632-737): the unsupervised loss and its regularisers. The
+    supervised head (node_fc, supervised_loss) is not ported yet."""
 
     def __init__(self, num_nodes: int, num_rels: int, h_dim: int,
                  num_hidden_layers: int = 1, dropout: float = 0.0,
-                 generator=None):
+                 reg_param: float = 0.0, generator=None):
         """num_rels is the ORIGINAL relation count; the backbone embeds
         both directions (2 * num_rels edge types)."""
         super().__init__()
+        self.num_rels = num_rels
+        self.h_dim = h_dim
+        self.reg_param = reg_param
         self.model = UNCDMPNN(num_nodes, num_rels * 2, h_dim, h_dim,
                               num_hidden_layers, dropout, generator)
         self.w_relation = _param(xavier_uniform(math.sqrt(2.0)),
@@ -263,6 +289,62 @@ class UNCTrainModel(nn.Module):
                 dtype: torch.dtype = torch.float32):
         """-> (h [V, H], z [E, H], r_bar [2R, H]) in `dtype` (r_bar f32)."""
         return self.model(sub, train=train, dtype=dtype)
+
+    def calc_score(self, node_emb: torch.Tensor,
+                   triplets: torch.Tensor) -> torch.Tensor:
+        """DistMult score sum(s * r * o) per (src, rel, dst) row."""
+        s = node_emb[triplets[:, 0]]
+        r = _onehot_rows(self.w_relation, triplets[:, 1])
+        o = node_emb[triplets[:, 2]]
+        return (s * r * o).sum(1)
+
+    def regularization(self, embedding, edge_type=None, edge_mask=None,
+                       node_mask=None) -> torch.Tensor:
+        """mean(w_rel^2) + the masked mean square of each backbone output
+        + the edge_fc alignment of the edge stream (model.py:691-715).
+        Masks go by position: 0 node rows (node_mask), 1 edge rows
+        (edge_mask), 2 per-relation means (none)."""
+        reg = (self.w_relation ** 2).mean()
+        if not isinstance(embedding, (tuple, list)):
+            embedding = (embedding,)
+        for emb, mask in zip(embedding, (node_mask, edge_mask, None)):
+            reg = reg + _masked_mean_sq(emb, mask)
+        if edge_type is not None and len(embedding) > 1:
+            mask = edge_type < self.num_rels
+            if edge_mask is not None:
+                mask = mask & edge_mask
+            diff = self.edge_fc(embedding[1]) - _onehot_rows(
+                self.w_relation, edge_type, clip=True)
+            sq = (diff ** 2).sum(1)
+            cnt = mask.sum().clamp(min=1)
+            reg = reg + torch.where(mask, sq, 0.0).sum() / (cnt * self.h_dim)
+        return reg
+
+    def unsupervised_loss(self, embedding, edge_type, edge_mask, samples,
+                          labels, sample_mask, node_mask=None
+                          ) -> torch.Tensor:
+        """Masked mean sigmoid BCE of the DistMult scores plus reg_param
+        times the regulariser (model.py:1149-1156)."""
+        score = self.calc_score(embedding[0], samples)
+        bce = optax_sigmoid_bce(score, labels)
+        cnt = sample_mask.sum().clamp(min=1)
+        predict_loss = torch.where(sample_mask, bce, 0.0).sum() / cnt
+        reg = self.regularization(embedding, edge_type, edge_mask, node_mask)
+        return predict_loss + self.reg_param * reg
+
+
+def _masked_mean_sq(x: torch.Tensor, mask=None) -> torch.Tensor:
+    if mask is None:
+        return (x ** 2).sum() / max(float(x.numel()), 1.0)
+    m = mask.to(x.dtype)[:, None]
+    return ((x ** 2) * m).sum() / (m.sum() * x.shape[-1]).clamp(min=1.0)
+
+
+def optax_sigmoid_bce(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """binary_cross_entropy_with_logits, elementwise, in optax's form."""
+    return (logits.clamp(min=0) - logits * labels
+            + torch.log1p(torch.exp(-logits.abs())))
 
 
 def apply_unc_forward(model: UNCTrainModel, sub: Sub, amp: bool = False,

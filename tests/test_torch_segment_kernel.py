@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from dualmessagepassing_tpu.ops import segment_kernel as sk
@@ -128,16 +129,102 @@ def test_k2_plain_matches_row_broadcast_interpret(dtype):
 
 
 def test_entry_points_raise_on_requires_grad():
+    """The kernel entry points build no graph, so a call autograd records
+    raises (a gradient would be lost silently); the autograd Functions
+    take the same inputs."""
     recv, recv_padded, msg, row_ptr = make_stream(4, h=8)
     m = torch.from_numpy(msg).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="SegmentSumSorted"):
         tsk.segment_sum_sorted(m, torch.from_numpy(row_ptr))
     table = torch.zeros(300, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="GatherRowsSorted"):
         tsk.gather_rows_sorted(table, torch.from_numpy(recv_padded),
                                len(recv))
     with torch.no_grad():       # the same inputs pass without autograd
         tsk.segment_sum_sorted(m, torch.from_numpy(row_ptr))
+    out = tsk.SegmentSumSorted.apply(m, torch.from_numpy(row_ptr),
+                                     torch.from_numpy(recv_padded), len(recv))
+    assert out.requires_grad
+
+
+def _vjp_case(seed, dtype, w=21):
+    """A padded receiver-sorted stream with its receiver and sender
+    plans, a table and a cotangent whose pad rows are zero (as the
+    model's are)."""
+    recv, recv_padded, _, row_ptr = make_stream(seed)
+    rng = np.random.default_rng(seed + 10)
+    n_real, e, v = len(recv), len(recv_padded), 300
+    senders = np.concatenate([rng.integers(0, v, n_real),
+                              np.zeros(e - n_real, np.int64)])
+    send_order = np.argsort(senders, kind="stable")
+    sk2 = np.searchsorted(senders[send_order], np.arange(v + 1)).astype(
+        np.int32)
+    table = rng.normal(size=(v, w)).astype(np.float32)
+    g_rows = rng.normal(size=(e, w)).astype(np.float32)
+    g_rows[n_real:] = 0
+    g_nodes = rng.normal(size=(v, w)).astype(np.float32)
+    msg = rng.normal(size=(e, w)).astype(np.float32)
+    msg[n_real:] = 0
+    t = torch.from_numpy
+    return dict(recv=recv_padded, senders=senders, send_order=send_order,
+                row_ptr=row_ptr, sk2=sk2, n_real=n_real, table=table,
+                g_rows=g_rows, g_nodes=g_nodes, msg=msg,
+                t=dict(recv=t(recv_padded), senders=t(senders),
+                       send_order=t(send_order), row_ptr=t(row_ptr),
+                       sk2=t(sk2), table=t(table).to(torch_dtype(dtype)),
+                       g_rows=t(g_rows).to(torch_dtype(dtype)),
+                       g_nodes=t(g_nodes).to(torch_dtype(dtype)),
+                       msg=t(msg).to(torch_dtype(dtype))))
+
+
+def _port_grad(fn, x, g):
+    x = x.clone().requires_grad_()
+    fn(x).backward(g)
+    return x.grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_pairings_match_jax_vjps(dtype):
+    """The three Functions' plain-version gradients against the JAX
+    package's custom VJPs of the same operations: the receiver gather
+    (_take_rows, sorted), the sender gather (_take_rows_perm) and the
+    aggregation (_segment_sum_f32). Every one sums in float32 and rounds
+    once to the dtype, so they agree as K1 does (1e-5 in f32, one bf16
+    ulp in bf16); the aggregation's backward is a gather — bitwise."""
+    from dualmessagepassing_tpu.unc import model as jm
+
+    c = _vjp_case(5, dtype)
+    x = c["t"]
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    table = jnp.asarray(c["table"]).astype(jd)
+
+    got = _port_grad(lambda tb: tsk.GatherRowsSorted.apply(
+        tb, x["recv"], c["n_real"], x["row_ptr"]), x["table"], x["g_rows"])
+    _, vjp = jax.vjp(lambda tb: jm._take_rows(tb, jnp.asarray(c["recv"]),
+                                              sorted_idx=True), table)
+    want = vjp(jnp.asarray(c["g_rows"]).astype(jd))[0]
+    assert got.dtype == x["table"].dtype
+    assert_k1_close(got.float(), want.astype(jnp.float32), dtype)
+
+    got = _port_grad(lambda tb: tsk.GatherRowsPerm.apply(
+        tb, x["senders"], x["send_order"], x["sk2"]), x["table"],
+        x["g_rows"])
+    _, vjp = jax.vjp(lambda tb: jm._take_rows_perm(
+        tb, jnp.asarray(c["senders"]), jnp.asarray(c["send_order"]),
+        jnp.asarray(c["senders"][c["send_order"]])), table)
+    want = vjp(jnp.asarray(c["g_rows"]).astype(jd))[0]
+    assert_k1_close(got.float(), want.astype(jnp.float32), dtype)
+
+    got = _port_grad(lambda m: tsk.SegmentSumSorted.apply(
+        m, x["row_ptr"], x["recv"], c["n_real"]), x["msg"], x["g_nodes"])
+    _, vjp = jax.vjp(lambda m: jm._segment_sum_f32(
+        m, jnp.asarray(c["recv"]), 300, 21, True),
+        jnp.asarray(c["msg"]).astype(jd))
+    want = np.asarray(vjp(jnp.asarray(c["g_nodes"]).astype(jd))[0]
+                      .astype(jnp.float32))
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got[:c["n_real"]], want[:c["n_real"]])
+    assert (got[c["n_real"]:] == 0).all()       # K2 zeroes the pad tail
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
