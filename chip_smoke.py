@@ -11,13 +11,16 @@ Phases (any failure raises and the script exits non-zero):
   1 build    nvcc-build the two kernel libraries at once and g++-build
              the host sampler; print the seconds each took;
   2 kernels  each kernel against its plain PyTorch version on the card:
-             K1/K2 in f32 and bf16, widths 1/50/101/128, a hub row of
-             5,000 edges, empty rows, a pad tail; K3 and K4 at the kernel
+             K1/K2 in f32 and bf16, widths 1/3/50/101/128/129, a hub row
+             of 5,000 edges, empty rows, a pad tail, K2 bitwise also with
+             its table and output at misaligned storage offsets
+             (K2_OFFSETS); K3 and K4 at the kernel
              bench's four sizes; the three autograd Functions' gradients
              at the training path's shapes against the same Functions on
-             the CPU (plain versions). Then each kernel and its plain
-             version timed with CUDA events at the path's shapes (K1 also
-             at width 101, the receiver cotangent);
+             the CPU (plain versions). Then K1 (W = 50, 101) and K2
+             (W = 101, 50) and their plain versions timed at the path's
+             shapes, f32 and bf16: CUDA events around the call and the
+             device time torch.profiler records (kernel_bench.time_call);
   3 model    one sampled PubMed-scale batch through the model on the card
              and on the CPU (plain kernel versions), f32 and amp bf16;
   4 serving  export_embeddings in amp bf16 at the unc_infer envelope
@@ -32,8 +35,9 @@ Phases (any failure raises and the script exits non-zero):
              epoch: loss, host sampling ms, step ms (CUDA events), device
              busy and idle share. Per step K1 must launch 2 forward and 4
              backward times and K2 2 and 2; per export request each 2;
-  6 bench    the port's kernel bench (bench/kernel_bench.py) at 5
-             iterations, one JSON line per variant; K3 and K4 launched.
+  6 bench    the port's kernel bench (bench/kernel_bench.py) at 20
+             iterations, one JSON line per variant with its event and
+             device times; K3 and K4 launched.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -43,9 +47,12 @@ types) made from --seed, with random weights from a CPU torch.Generator.
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
 (K1, K2: phase 5's training and export, forward and backward; K3, K4:
-phase 6's kernel bench), its max abs error against the plain version
-and both times (f32; path shapes for K1/K2, the bench's largest size for
-K3/K4). The last line is
+phase 6's kernel bench), its max abs error against the plain version,
+and the kernel's and the plain version's times, each as CUDA-event ms
+("ms", "plain_ms") and torch.profiler device ms ("device_ms",
+"plain_device_ms"): f32 at the path's shapes for K1 (W = 50; "_w101")
+and K2 (W = 101; "_w50"), the bench's largest size for K3 and K4 (their
+plain versions: the bench's index_add_ variants). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -128,6 +135,9 @@ MODEL_BF16_MEAN_ATOL = 1e-3
 # relative.
 TRAIN_F32_REL, TRAIN_F32_GLOBAL = 1e-4, 1e-5
 TRAIN_AMP_FACTOR = 1.5
+# K2 is checked bitwise with its table and output at these element
+# offsets into their storage: aligned, and three misaligned pairs
+K2_OFFSETS = ((0, 0), (1, 3), (3, 1), (0, 5))
 # per train step with N_LAYERS layers: K1 aggregation, receiver and
 # sender cotangents; K2 receiver gather, aggregation cotangent
 K1_FWD, K1_BWD, K2_FWD, K2_BWD = N_LAYERS, 2 * N_LAYERS, N_LAYERS, N_LAYERS
@@ -179,20 +189,15 @@ def make_model(num_nodes: int, num_rels: int, seed: int) -> UNCTrainModel:
     return model
 
 
-def cuda_median_ms(fn, runs: int = 30, warmup: int = 3) -> float:
-    """Median over `runs` launches of fn, each timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    pairs = []
-    for _ in range(runs):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        pairs.append((a, b))
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+def timed_pair(label: str, kernel, plain, extra: str = "") -> dict:
+    """CUDA-event and torch.profiler device times of a kernel call and
+    of its plain version (30 calls each), printed on one line."""
+    k_ev, k_dev = kernel_bench.time_call(kernel, 30)
+    p_ev, p_dev = kernel_bench.time_call(plain, 30)
+    print(f"timing {label}: kernel {k_ev:.4f} ms event, {k_dev:.4f} ms "
+          f"device; plain {p_ev:.4f} ms event, {p_dev:.4f} ms device{extra}")
+    return dict(ms=k_ev, device_ms=k_dev, plain_ms=p_ev,
+                plain_device_ms=p_dev)
 
 
 # --- phase 2: kernels ----------------------------------------------------
@@ -232,72 +237,98 @@ def check_k1(msg, row_ptr, empty) -> float:
     return err.max().item()
 
 
-def check_k2(table, idx, n_real) -> float:
-    got = sk.gather_rows_sorted(table, idx, n_real)
+def check_k2(table, idx, n_real, offsets=(0, 0)) -> float:
+    """K2 bitwise against its plain version. With offsets (t, o) the
+    table is read from, and the rows written into, views that start t
+    and o elements into their storage (16-byte misaligned for t, o not
+    multiples of 16 bytes), and the storage around out must stay as it
+    was."""
+    t_off, o_off = offsets
+    e, w = idx.numel(), table.shape[1]
+    if t_off:
+        buf = torch.empty(table.numel() + t_off, dtype=table.dtype,
+                          device=table.device)
+        table = buf[t_off:].view_as(table).copy_(table)
+    out = None
+    if o_off:
+        guard = torch.full((e * w + o_off + 16,), 3.0, dtype=table.dtype,
+                           device=table.device)
+        out = guard[o_off: o_off + e * w].view(e, w)
+    got = sk.gather_rows_sorted(table, idx, n_real, out=out)
     want = sk.gather_rows_sorted_plain(table, idx, n_real)
     bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     check(torch.equal(got.view(bits), want.view(bits)),
-          f"K2 {table.dtype} W={table.shape[1]} not bitwise equal")
+          f"K2 {table.dtype} W={w} offsets {offsets} not bitwise equal")
     check(bool((got[n_real:] == 0).all()), "K2 pad tail not zero")
+    if o_off:
+        check(bool((guard[:o_off] == 3).all()
+                   and (guard[o_off + e * w:] == 3).all()),
+              f"K2 W={w} offsets {offsets} wrote outside its output")
     return (got.float() - want.float()).abs().max().item()
 
 
-def phase_kernels(dev, rng) -> dict:
+def phase_kernels(dev, rng, extra) -> dict:
+    """K1 and K2 against their plain versions, then timed at the path's
+    shapes. `rng` draws what it drew before this phase had `extra`, so
+    that the later phases see the same data; `extra` draws the rest."""
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
-            for width in (1, 50, 101, 128):
+            # widths 3 and 129 draw from `extra`
+            for width, draw in ((1, rng), (3, extra), (50, rng), (101, rng),
+                                (128, rng), (129, extra)):
                 msg, rp, table, idx, n_real = kernel_case(
-                    rng, 6000, 25000, 3000, 5000, (1000, 2000), width,
+                    draw, 6000, 25000, 3000, 5000, (1000, 2000), width,
                     dtype, dev)
                 err = check_k1(msg, rp, (1000, 2000))
-                check_k2(table, idx, n_real)
+                for offsets in K2_OFFSETS:
+                    check_k2(table, idx, n_real, offsets)
                 torch.cuda.synchronize()
                 print(f"kernels: {str(dtype)[6:]:8s} width {width:3d} "
                       f"K1 max abs err {err:.3e} (within bound), "
-                      "K2 bitwise equal")
+                      f"K2 bitwise equal at (table, out) element offsets "
+                      f"{K2_OFFSETS}")
 
-        # timing at the export path's shapes: E = e_max of the PubMed
-        # envelope, all real; K1 H = 50, K2 width 2H+1 = 101
-        v, e = PUBMED["num_nodes"], PUBMED_E_MAX
+        # timing at the path's shapes: E = e_max of the PubMed envelope,
+        # all real. K1 at H = 50 (aggregation) and W = 2H+1 = 101 (the
+        # receiver cotangent); K2 at W = 101 (receiver gather) and W = 50
+        # (the aggregation's cotangent)
+        v, e, w = PUBMED["num_nodes"], PUBMED_E_MAX, 2 * N_HIDDEN + 1
         timed = {}
         for dtype in (torch.float32, torch.bfloat16):
-            recv = np.sort(rng.integers(0, v, e))
-            row_ptr = torch.from_numpy(
-                np.searchsorted(recv, np.arange(v + 1)).astype(np.int32)
-            ).to(dev)
-            idx = torch.from_numpy(recv).to(dev)
-            msg = torch.from_numpy(rng.normal(size=(e, N_HIDDEN)).astype(
-                np.float32)).to(dev, dtype)
-            table = torch.from_numpy(rng.normal(
-                size=(v, 2 * N_HIDDEN + 1)).astype(np.float32)).to(dev, dtype)
-            k1_err = check_k1(msg, row_ptr, (0, 0))
-            k2_err = check_k2(table, idx, e)
-            k1 = cuda_median_ms(lambda: sk.segment_sum_sorted(msg, row_ptr))
-            k1p = cuda_median_ms(
-                lambda: sk.segment_sum_sorted_plain(msg, row_ptr))
-            # the receiver cotangent: K1 over [E, 2H+1] on the same rows
-            wide = torch.from_numpy(rng.normal(
-                size=(e, 2 * N_HIDDEN + 1)).astype(np.float32)).to(dev, dtype)
-            k1w_err = check_k1(wide, row_ptr, (0, 0))
-            k1w = cuda_median_ms(lambda: sk.segment_sum_sorted(wide, row_ptr))
-            k1wp = cuda_median_ms(
-                lambda: sk.segment_sum_sorted_plain(wide, row_ptr))
-            del wide
-            k2 = cuda_median_ms(lambda: sk.gather_rows_sorted(table, idx, e))
-            k2p = cuda_median_ms(
-                lambda: sk.gather_rows_sorted_plain(table, idx, e))
             name = str(dtype)[6:]
-            print(f"timing {name}: K1 segment_sum_sorted E={e} V={v} "
-                  f"H={N_HIDDEN}: kernel {k1:.4f} ms, plain {k1p:.4f} ms")
-            print(f"timing {name}: K1 segment_sum_sorted E={e} V={v} "
-                  f"W={2 * N_HIDDEN + 1}: kernel {k1w:.4f} ms, "
-                  f"plain {k1wp:.4f} ms (max abs err {k1w_err:.3e})")
-            print(f"timing {name}: K2 gather_rows_sorted E={e} V={v} "
-                  f"W={2 * N_HIDDEN + 1}: kernel {k2:.4f} ms, "
-                  f"plain {k2p:.4f} ms")
-            timed[name] = dict(k1=k1, k1p=k1p, k2=k2, k2p=k2p,
-                               k1_err=k1_err, k2_err=k2_err, k1w=k1w,
-                               k1wp=k1wp)
+            t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+            recv = np.sort(rng.integers(0, v, e))
+            row_ptr = t(np.searchsorted(recv, np.arange(v + 1)).astype(
+                np.int32))
+            idx = t(recv)
+            msgs = {N_HIDDEN: rng.normal(size=(e, N_HIDDEN))}
+            tables = {w: rng.normal(size=(v, w)),
+                      N_HIDDEN: extra.normal(size=(v, N_HIDDEN))}
+            msgs[w] = rng.normal(size=(e, w))
+            for h, m in msgs.items():
+                msg = t(m.astype(np.float32)).to(dtype)
+                err = check_k1(msg, row_ptr, (0, 0))
+                timed[(name, "K1", h)] = dict(err=err, **timed_pair(
+                    f"{name}: K1 segment_sum_sorted E={e} V={v} W={h}",
+                    lambda: sk.segment_sum_sorted(msg, row_ptr),
+                    lambda: sk.segment_sum_sorted_plain(msg, row_ptr),
+                    f" (max abs err {err:.3e})"))
+                del msg
+            for h, tb in tables.items():
+                table = t(tb.astype(np.float32)).to(dtype)
+                err = check_k2(table, idx, e)
+                nbytes = (e * h + v * h) * table.element_size() + e * 8
+                times = timed_pair(
+                    f"{name}: K2 gather_rows_sorted E={e} V={v} W={h}",
+                    lambda: sk.gather_rows_sorted(table, idx, e),
+                    lambda: sk.gather_rows_sorted_plain(table, idx, e))
+                share = nbytes / (kernel_bench.HBM_GBPS * 1e6) / times[
+                    "device_ms"]
+                print(f"timing {name}: K2 W={h} moves {nbytes / 1e6:.1f} MB:"
+                      f" {100 * share:.1f} % of HBM bandwidth (3.35 TB/s) "
+                      "by device time")
+                timed[(name, "K2", h)] = dict(err=err, hbm_share=share,
+                                              **times)
     return timed
 
 
@@ -311,7 +342,8 @@ def check_sum(name: str, got, want, abs_sum) -> float:
 
 def phase_scatter_kernels(dev) -> dict:
     """K3 and K4 against their plain versions at the kernel bench's four
-    sizes (H = 64; K3 also in bf16), both timed at the largest."""
+    sizes (H = 64; K3 also in bf16); the errors at the largest. Phase 6's
+    kernel bench times them."""
     with torch.inference_mode():
         for spec in kernel_bench.DEFAULT_SIZES.split(","):
             v, e = (int(t) for t in spec.split("x"))
@@ -336,20 +368,7 @@ def phase_scatter_kernels(dev) -> dict:
             print(f"kernels: V={v} E={e} H=64 " + ", ".join(
                 f"{k} max abs err {val:.3e}" for k, val in errs.items())
                 + " (within bound)")
-        timed = dict(
-            size=spec, k3_err=errs["K3 float32"], k4_err=errs["K4 float32"],
-            k3=cuda_median_ms(
-                lambda: sc.segment_sum_unsorted(x["msg"], x["recv"], v)),
-            k3p=cuda_median_ms(lambda: sc.segment_sum_unsorted_plain(
-                x["msg"], x["recv"], v)),
-            k4=cuda_median_ms(
-                lambda: sc.csr_segment_sum(x["msg_sorted"], x["row_ptr"])),
-            k4p=cuda_median_ms(lambda: sc.csr_segment_sum_plain(
-                x["msg_sorted"], x["row_ptr"])))
-    for k in ("k3", "k4"):
-        print(f"timing float32: {k.upper()} V={v} E={e} H=64: kernel "
-              f"{timed[k]:.4f} ms, plain {timed[k + 'p']:.4f} ms")
-    return timed
+    return dict(k3_err=errs["K3 float32"], k4_err=errs["K4 float32"])
 
 
 def phase_functions(dev, rng) -> None:
@@ -527,22 +546,6 @@ def phase_train_grads(model, graph, triplets, seed, dev) -> dict:
     return worst
 
 
-def _device_us(evt) -> float:
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
-def _device_events(prof) -> list:
-    """The device-side events (kernels, copies, sets) of a trace; the
-    operator events above them carry the same time again."""
-    events = [e for e in prof.key_averages() if _device_us(e) > 0]
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if getattr(e, "device_type", None) == cuda]
-    return kernels or events
-
-
 def phase_profile(model, graph, triplets, seed, dev) -> dict:
     """Three train steps of a copy of the model under torch.profiler, f32
     and amp bf16: device time per step and the top device operations;
@@ -563,16 +566,18 @@ def phase_profile(model, graph, triplets, seed, dev) -> dict:
                 step(sub)
             torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / 3
-        events = _device_events(prof)
-        total = sum(_device_us(e) for e in events) / 3e3
+        events = kernel_bench.device_events(prof)
+        total = sum(kernel_bench.device_us(e) for e in events) / 3e3
         name = "amp bf16" if amp else "f32"
         print(f"profile {name}: {total:.3f} ms device time per train step "
               f"(torch.profiler, 3 steps), {wall:.3f} ms wall per step")
-        for e in sorted(events, key=_device_us, reverse=True)[:12]:
-            ms = _device_us(e) / 3e3
+        for e in sorted(events, key=kernel_bench.device_us,
+                        reverse=True)[:12]:
+            ms = kernel_bench.device_us(e) / 3e3
             print(f"profile {name}:   {ms:8.4f} ms {100 * ms / total:5.1f} % "
                   f"x{e.count // 3:<4d} {e.key[:90]}")
-        step_ms = cuda_median_ms(lambda: step(sub), runs=5, warmup=0)
+        step_ms = kernel_bench.cuda_median_ms(lambda: step(sub), 5,
+                                              warmup=0)
         print(f"profile {name}: train step {step_ms:.3f} ms (CUDA events, "
               "median of 5)")
         out[name] = dict(device_ms=total, wall_ms=wall, step_ms=step_ms)
@@ -714,7 +719,8 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     rng = np.random.default_rng(args.seed)
-    timed = phase_kernels(dev, rng)
+    timed = phase_kernels(dev, rng,
+                          np.random.default_rng(args.seed + 7))
     timed_sc = phase_scatter_kernels(dev)
     phase_functions(dev, rng)
 
@@ -755,10 +761,11 @@ def main() -> int:
 
     # phase 6: the kernel bench, counted from zero
     sk.reset_launch_counts()
-    kernel_bench.run(kernel_bench.DEFAULT_SIZES, iters=5,
-                     print_fn=lambda line: print(f"bench: {line}"))
+    iters = 20
+    rows = kernel_bench.run(kernel_bench.DEFAULT_SIZES, iters=iters,
+                            print_fn=lambda line: print(f"bench: {line}"))
     bench_launches = dict(sk.LAUNCHES)
-    per_size = 1 + 3 + 5        # check, warm-up, timed
+    per_size = 1 + 3 + 2 * iters    # check, warm-up, events, profiler
     n_sizes = len(kernel_bench.DEFAULT_SIZES.split(","))
     for name in ("segment_sum_unsorted", "csr_segment_sum"):
         check(bench_launches.get(name, 0) == per_size * n_sizes,
@@ -766,37 +773,54 @@ def main() -> int:
     print(f"bench: launches {bench_launches}; total "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
 
-    f32 = timed["float32"]
     src = "dualmessagepassing_tpu_torch/csrc/segment_kernels.cu"
+    w = 2 * N_HIDDEN + 1
 
-    def k12(name, replaces, err, ms, plain_ms, extra):
+    def times(t, suffix=""):
+        return {f"ms{suffix}": t["ms"], f"device_ms{suffix}": t["device_ms"],
+                f"plain_ms{suffix}": t["plain_ms"],
+                f"plain_device_ms{suffix}": t["plain_device_ms"]}
+
+    def k12(name, replaces, main, other, suffix):
         fwd = train_launches[name + ":fwd"]
         bwd = train_launches[name + ":bwd"]
-        return dict({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": fwd + bwd,
-                     "launches_fwd": fwd, "launches_bwd": bwd,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms},
-                    **extra)
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": fwd + bwd,
+                "launches_fwd": fwd, "launches_bwd": bwd,
+                "max_abs_err": max(main["err"], other["err"]),
+                **times(main), **times(other, suffix)}
+
+    v_big, e_big = (int(t) for t in
+                    kernel_bench.DEFAULT_SIZES.split(",")[-1].split("x"))
+    largest = {r["variant"]: r for r in rows
+               if (r["V"], r["E"]) == (v_big, e_big)}
+
+    def k34(name, source, replaces, variant, plain, err):
+        k, p = largest[variant], largest[plain]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": bench_launches[name],
+                "max_abs_err": err, "ms": k["event_ms"],
+                "device_ms": k["device_ms"], "plain_ms": p["event_ms"],
+                "plain_device_ms": p["device_ms"], "plain": plain,
+                "size": f"{v_big}x{e_big}"}
 
     print(json.dumps({"kernels": [
         k12("segment_sum_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:261",
-            f32["k1_err"], f32["k1"], f32["k1p"],
-            {"ms_w101": f32["k1w"], "plain_ms_w101": f32["k1wp"]}),
+            timed[("float32", "K1", N_HIDDEN)], timed[("float32", "K1", w)],
+            f"_w{w}"),
         k12("gather_rows_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:572",
-            f32["k2_err"], f32["k2"], f32["k2p"], {}),
-        {"name": "segment_sum_unsorted", "route": "cuda",
-         "source": "dualmessagepassing_tpu_torch/csrc/scatter_kernels.cu",
-         "replaces": "dualmessagepassing_tpu/ops/pallas_scatter.py:109",
-         "launches": bench_launches["segment_sum_unsorted"],
-         "max_abs_err": timed_sc["k3_err"], "ms": timed_sc["k3"],
-         "plain_ms": timed_sc["k3p"], "size": timed_sc["size"]},
-        {"name": "csr_segment_sum", "route": "cuda", "source": src,
-         "replaces": "dualmessagepassing_tpu/ops/pallas_scatter.py:225",
-         "launches": bench_launches["csr_segment_sum"],
-         "max_abs_err": timed_sc["k4_err"], "ms": timed_sc["k4"],
-         "plain_ms": timed_sc["k4p"], "size": timed_sc["size"]},
+            timed[("float32", "K2", w)], timed[("float32", "K2", N_HIDDEN)],
+            f"_w{N_HIDDEN}"),
+        k34("segment_sum_unsorted",
+            "dualmessagepassing_tpu_torch/csrc/scatter_kernels.cu",
+            "dualmessagepassing_tpu/ops/pallas_scatter.py:109",
+            "k3_segment_sum_unsorted", "plain_scatter", timed_sc["k3_err"]),
+        k34("csr_segment_sum", src,
+            "dualmessagepassing_tpu/ops/pallas_scatter.py:225",
+            "k4_csr_segment_sum", "plain_scatter_sorted",
+            timed_sc["k4_err"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

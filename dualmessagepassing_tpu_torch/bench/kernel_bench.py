@@ -3,8 +3,8 @@ port of scripts/kernel_bench.py.
 
     python -m dualmessagepassing_tpu_torch.bench.kernel_bench [--iters 20]
 
-For each V x E size (the JAX script's defaults) and H = 64 it times,
-per call, with CUDA events (median of --iters launches after warm-up):
+For each V x E size (the JAX script's defaults) and H = 64 it times
+these variants:
 
   plain_scatter         zeros.index_add_(recv, msg), unsorted stream
   plain_scatter_sorted  the same on the receiver-sorted stream
@@ -17,14 +17,25 @@ and the gather pair over a [V, 128] bf16 table at the sorted receivers:
   plain_gather          table[idx]
   k2_gather_rows_sorted K2
 
+Two times per call, both on the card (time_call):
+  event_ms   CUDA events around the Python call, median of --iters
+             calls: what an eager PyTorch loop feels, the wrapper's host
+             work included — a short kernel leaves the card idle while
+             the host runs the wrapper, and that idle time lands between
+             the events;
+  device_ms  torch.profiler: the summed duration of the device work the
+             call launches (kernels, memsets, copies), over --iters
+             calls, divided by --iters — the kernels' own time.
+
 Each variant's result is checked against plain_scatter (float32 sums:
 within 2**-20 of each row's absolute sum; gathers: bitwise) before it
 is timed. The roofline is the bytes a variant must move over the
 H100's HBM3 bandwidth (3.35 TB/s): E*H*4 read + V*H*4 written + E*8 of
 int64 indices for the sums, E*128*2 written + V*128*2 read + E*8 for
-the gathers. One JSON line per variant, after a line with the card's
-name and power limit (nvidia-smi). A machine without a CUDA device
-exits non-zero: this measures the card and nothing else.
+the gathers; x_roofline is device_ms over it. One JSON line per
+variant, after a line with the card's name and power limit
+(nvidia-smi). A machine without a CUDA device exits non-zero: this
+measures the card and nothing else.
 """
 
 from __future__ import annotations
@@ -119,6 +130,7 @@ def roofline_ms(x: Dict, kind: str) -> float:
 
 
 def cuda_median_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
+    """Median over `iters` calls of fn, each between two CUDA events."""
     for _ in range(warmup):
         fn()
     pairs = []
@@ -131,6 +143,44 @@ def cuda_median_ms(fn: Callable, iters: int, warmup: int = 3) -> float:
         pairs.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def device_events(prof) -> list:
+    """The device-side events (kernels, copies, sets) of a trace; the
+    operator events above them carry the same time again."""
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if getattr(e, "device_type", None) == cuda]
+    return kernels or events
+
+
+def device_ms(fn: Callable, iters: int) -> float:
+    """Mean device time per call of fn: the device work that
+    torch.profiler records over `iters` calls, summed, over `iters`."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_us(e) for e in device_events(prof))
+    if total <= 0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return total / iters / 1e3
+
+
+def time_call(fn: Callable, iters: int) -> Tuple[float, float]:
+    """(event_ms, device_ms) of fn: 3 warm-up calls, `iters` calls
+    between CUDA events, `iters` calls under torch.profiler."""
+    return cuda_median_ms(fn, iters), device_ms(fn, iters)
 
 
 def run(sizes: str = DEFAULT_SIZES, h: int = 64, iters: int = 20,
@@ -147,13 +197,13 @@ def run(sizes: str = DEFAULT_SIZES, h: int = 64, iters: int = 20,
             x = make_inputs(v, e, h, seed, device)
             for name, (fn, kind) in variants(x).items():
                 err = check(x, name, fn(), kind)
-                ms = cuda_median_ms(fn, iters)
+                event, dev = time_call(fn, iters)
                 bound = roofline_ms(x, kind)
                 rows.append({"V": v, "E": e,
                              "H": 128 if kind == "gather" else h,
-                             "variant": name, "device_ms": ms,
-                             "roofline_ms": bound,
-                             "x_roofline": ms / bound, "max_abs_err": err})
+                             "variant": name, "event_ms": event,
+                             "device_ms": dev, "roofline_ms": bound,
+                             "x_roofline": dev / bound, "max_abs_err": err})
                 print_fn(json.dumps(rows[-1]))
     return rows
 

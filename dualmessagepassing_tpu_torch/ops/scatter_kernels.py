@@ -10,9 +10,11 @@ training or serving path; their one entry point is the kernel bench
       out[v] = sum of msg[e] over the edges with receivers[e] == v, for
       an UNSORTED stream; receivers outside [0, V) are dropped. Replaces
       pallas_segment_sum (pallas_scatter.py:94-121), the full-V
-      accumulator kernel. A new CUDA kernel (csrc/scatter_kernels.cu):
-      one warp per edge row, float32 atomics into a zeroed output. The
-      order of the atomic additions changes from run to run.
+      accumulator kernel. A CUDA kernel (csrc/scatter_kernels.cu): a
+      grid-stride walk over the edges, lanes across 4-column items, one
+      float4 atomic per item into the output, which the launcher zeroes
+      on the stream. The order of the atomic additions changes from run
+      to run.
   K4  csr_segment_sum(messages_sorted [E', H] f32, row_ptr int32 [V+1])
       -> [V, H] float32
       Replaces pallas_csr_segment_sum (pallas_scatter.py:178-229), the
@@ -83,9 +85,10 @@ def segment_sum_unsorted(msg: torch.Tensor, receivers: torch.Tensor,
         raise ValueError("segment_sum_unsorted: receivers must hold one "
                          "entry per message row, on the same device")
     e, h = msg.shape
-    out = torch.zeros((num_nodes, h), dtype=torch.float32, device=msg.device)
+    # zeroed by the launcher, on the stream
+    out = torch.empty((num_nodes, h), dtype=torch.float32, device=msg.device)
     if num_nodes == 0 or h == 0 or e == 0:
-        return out
+        return out.zero_()
     rc = SCATTER_KERNELS.load().dmp_segment_sum_unsorted(
         msg.data_ptr(), receivers.data_ptr(), out.data_ptr(), num_nodes, h,
         e, _DTYPE_CODE[msg.dtype], msg.device.index, _stream(msg.device))

@@ -202,16 +202,26 @@ def gather_rows_sorted_plain(table: torch.Tensor, idx: torch.Tensor,
 
 
 def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor,
-                       n_real: int, *, backward: bool = False) -> torch.Tensor:
+                       n_real: int, *, backward: bool = False,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """table [Vt, W] f32|bf16, idx int64 [E] receiver-sorted on its first
     n_real entries -> [E, W]: table rows, zero rows from n_real on.
-    `backward` only picks the launch count a kernel launch adds to."""
+    `out`, if given, is a contiguous [E, W] tensor of the table's dtype
+    and device that receives the rows (at any storage offset); `backward`
+    only picks the launch count a kernel launch adds to."""
     _refuse_autograd("gather_rows_sorted", "GatherRowsSorted", table)
     n_real = int(n_real)
     if not 0 <= n_real <= idx.numel():
         raise ValueError(f"n_real={n_real} outside [0, {idx.numel()}]")
+    shape = (idx.numel(), table.shape[-1])
+    if out is not None and (out.shape != shape or out.dtype != table.dtype
+                            or out.device != table.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"gather_rows_sorted: out must be a contiguous "
+                         f"{shape} {table.dtype} tensor on {table.device}")
     if table.device.type == "cpu":
-        return gather_rows_sorted_plain(table, idx, n_real)
+        rows = gather_rows_sorted_plain(table, idx, n_real)
+        return rows if out is None else out.copy_(rows)
     _check_cuda("gather_rows_sorted table", table, tuple(_DTYPE_CODE), 2)
     _check_cuda("gather_rows_sorted idx", idx, (torch.int64,), 1)
     if idx.device != table.device:
@@ -219,7 +229,8 @@ def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor,
                          "devices")
     vt, w = table.shape
     e = idx.numel()
-    out = torch.empty((e, w), dtype=table.dtype, device=table.device)
+    if out is None:
+        out = torch.empty((e, w), dtype=table.dtype, device=table.device)
     if e == 0 or w == 0:
         return out
     rc = CUDA_KERNELS.load().dmp_gather_rows_sorted(

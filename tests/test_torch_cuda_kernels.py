@@ -65,20 +65,55 @@ def test_k1_matches_plain(cuda, dtype, width):
     assert (got[250:] == 0).all()
 
 
-@pytest.mark.parametrize("width", [1, 50, 101, 128])
+def bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("width", [1, 3, 50, 101, 128, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_bitwise(cuda, dtype, width):
     _, _, recv_padded, n_real = stream(1)
     rng = np.random.default_rng(2)
     table = torch.from_numpy(rng.normal(size=(500, width)).astype(
         np.float32)).to(cuda, dtype)
+    table[recv_padded[0], 0], table[recv_padded[-1], -1] = float("nan"), -0.0
     idx = torch.from_numpy(recv_padded).to(cuda)
     with torch.inference_mode():
         got = sk.gather_rows_sorted(table, idx, n_real)
         want = sk.gather_rows_sorted_plain(table, idx, n_real)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(bits(got), bits(want))
     assert (got[n_real:] == 0).all()
+
+
+@pytest.mark.parametrize("offsets", [(1, 3), (2, 1), (3, 0), (0, 5)])
+@pytest.mark.parametrize("width", [1, 3, 50, 101, 128, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_bitwise_at_offsets(cuda, dtype, width, offsets):
+    """K2 on a table and into an output that start `offsets` elements
+    into their storage (not 16-byte aligned), with a 5,000-edge hub,
+    empty rows and a pad tail: bitwise, and nothing written outside."""
+    rng = np.random.default_rng(11)
+    v, e_real, e_pad = 3000, 12000, 700
+    recv = np.sort(np.concatenate([np.full(5000, 17),
+                                   rng.integers(0, v // 2, e_real - 5000)]))
+    recv_padded = np.concatenate([recv, np.full(e_pad, recv[-1])])
+    e = len(recv_padded)
+    t_off, o_off = offsets
+    t_buf = torch.from_numpy(rng.normal(size=v * width + t_off).astype(
+        np.float32)).to(cuda, dtype)
+    table = t_buf[t_off:].view(v, width)
+    o_buf = torch.full((e * width + o_off + 9,), 5.0, dtype=dtype,
+                       device=cuda)
+    out = o_buf[o_off: o_off + e * width].view(e, width)
+    idx = torch.from_numpy(recv_padded).to(cuda)
+    with torch.inference_mode():
+        got = sk.gather_rows_sorted(table, idx, e_real, out=out)
+        want = sk.gather_rows_sorted_plain(table, idx, e_real)
+    torch.cuda.synchronize()
+    assert got is out
+    assert torch.equal(bits(out), bits(want))
+    assert (o_buf[:o_off] == 5).all() and (o_buf[o_off + e * width:] == 5).all()
 
 
 def test_wrappers_validate_and_count(cuda):
@@ -133,20 +168,29 @@ def within_abs_sum(got, want, abs_sum):
     return bool(((got - want).abs() <= 2.0 ** -20 * abs_sum).all())
 
 
+@pytest.mark.parametrize("msg_offset", [0, 1])
+@pytest.mark.parametrize("v, h", [(700, 64), (700, 63), (3000, 64),
+                                  (3000, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k3_matches_plain(cuda, dtype):
+def test_k3_matches_plain(cuda, dtype, v, h, msg_offset):
+    """K3 with out-of-range receivers and a hub, at widths that take
+    4-column items (H = 64) and single columns (63, 1), on msg at its
+    storage's start and one element in (single columns again)."""
     rng = np.random.default_rng(5)
-    v, e, h = 700, 20000, 64
+    e = 20000
     recv = rng.integers(-3, v + 5, e)          # out-of-range are dropped
     recv[:3000] = 11                            # a hub
-    m = torch.from_numpy(rng.normal(size=(e, h)).astype(np.float32)).to(
-        cuda, dtype)
+    flat = torch.from_numpy(rng.normal(size=e * h + msg_offset).astype(
+        np.float32)).to(cuda, dtype)
+    m = flat[msg_offset:].view(e, h)
     r = torch.from_numpy(recv).to(cuda)
     with torch.inference_mode():
+        sk.reset_launch_counts()
         got = sc.segment_sum_unsorted(m, r, v)
         want = sc.segment_sum_unsorted_plain(m, r, v)
         abs_sum = sc.segment_sum_unsorted_plain(m.float().abs(), r, v)
     torch.cuda.synchronize()
+    assert dict(sk.LAUNCHES) == {"segment_sum_unsorted": 1}
     assert got.dtype == torch.float32
     assert within_abs_sum(got, want, abs_sum)
 

@@ -128,6 +128,32 @@ def test_k2_plain_matches_row_broadcast_interpret(dtype):
     assert (got[n_real:] == 0).all() and (want[n_real:] == 0).all()
 
 
+@pytest.mark.parametrize("width", [1, 3, 50, 101, 128, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_plain_matches_take_rows(dtype, width):
+    """gather_rows_sorted on the CPU against table[idx] with the pad tail
+    zero, bitwise (NaN and -0 included), returned and written into an
+    `out` view at an odd storage offset."""
+    recv, recv_padded, _, _ = make_stream(6, h=width)
+    n_real, e = len(recv), len(recv_padded)
+    table = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(300, width)).astype(np.float32)).to(torch_dtype(dtype))
+    table[3, 0], table[4, -1] = float("nan"), -0.0
+    idx = torch.from_numpy(recv_padded)
+    want = table[idx]
+    want[n_real:] = 0
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    got = tsk.gather_rows_sorted(table, idx, n_real)
+    assert torch.equal(got.view(bits), want.view(bits))
+    buf = torch.full((e * width + 1,), 7.0, dtype=table.dtype)
+    out = buf[1:].view(e, width)
+    assert tsk.gather_rows_sorted(table, idx, n_real, out=out) is out
+    assert torch.equal(out.view(bits), want.view(bits)) and buf[0] == 7.0
+    with pytest.raises(ValueError, match="out must be"):
+        tsk.gather_rows_sorted(table, idx, n_real, out=out.float()
+                               if dtype == "bfloat16" else out.double())
+
+
 def test_entry_points_raise_on_requires_grad():
     """The kernel entry points build no graph, so a call autograd records
     raises (a gradient would be lost silently); the autograd Functions
