@@ -96,9 +96,14 @@ class _CudaKernels:
 
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-# msg, row_ptr, out, n_rows, width, n_edges, [dtype,] device, stream
-_SEGMENT_SUM = (_I32, [_P, _P, _P, _I64, _I64, _I64, _I32, _I32, _P])
-_CSR_SEGMENT_SUM = (_I32, [_P, _P, _P, _I64, _I64, _I64, _I32, _P])
+# msg, rows, row_ptr, out, scratch, n_rows, width, n_msg_rows, n_edges,
+# n_shares, dtype, device, stream
+_SEGMENT_SUM = (_I32, [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                       _I32, _I32, _P])
+# msg, row_ptr, out, scratch, n_rows, width, n_edges, n_shares, device,
+# stream
+_CSR_SEGMENT_SUM = (_I32, [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                           _P])
 # table, idx, out, n_table_rows, width, n_edges, n_real, elem_bytes,
 # device, stream
 _GATHER_ROWS = (_I32, [_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _P])
@@ -110,7 +115,8 @@ CUDA_KERNELS = _CudaKernels("segment_kernels.cu", {
 })
 # msg, recv, out, n_rows, width, n_edges, dtype, device, stream
 SCATTER_KERNELS = _CudaKernels("scatter_kernels.cu", {
-    "dmp_segment_sum_unsorted": _SEGMENT_SUM,
+    "dmp_segment_sum_unsorted": (_I32, [_P, _P, _P, _I64, _I64, _I64, _I32,
+                                        _I32, _P]),
 })
 ALL_CUDA_KERNELS = (CUDA_KERNELS, SCATTER_KERNELS)
 

@@ -19,12 +19,12 @@ training or serving path; their one entry point is the kernel bench
       -> [V, H] float32
       Replaces pallas_csr_segment_sum (pallas_scatter.py:178-229), the
       CSR row-tiled kernel at HIGHEST precision. It computes exactly
-      what K1 computes in float32, so it launches K1's CUDA kernel
-      through an entry of its own (dmp_csr_segment_sum in
-      csrc/segment_kernels.cu) and counts its own launches. Rows past
-      row_ptr[V] are not read. The TPU tiling arguments (tile_v, tile_e,
-      the 128-lane pack with its H <= 127 limit, the padded row pointer)
-      have no counterpart.
+      what K1 computes in float32, so it launches K1's CUDA kernel (the
+      merge path, or one block per row for a short stream) through an
+      entry of its own (dmp_csr_segment_sum in csrc/segment_kernels.cu)
+      and counts its own launches. Rows past row_ptr[V] are not read.
+      The TPU tiling arguments (tile_v, tile_e, the 128-lane pack with
+      its H <= 127 limit, the padded row pointer) have no counterpart.
 
 csr_sort_host is the JAX module's host helper, copied as numpy.
 
@@ -41,7 +41,7 @@ import torch
 
 from .build import CUDA_KERNELS, SCATTER_KERNELS
 from .segment_kernel import (LAUNCHES, _DTYPE_CODE, _check_cuda,
-                             _refuse_autograd, _stream,
+                             _refuse_autograd, _stream, k1_scratch,
                              segment_sum_sorted_plain)
 
 
@@ -127,9 +127,11 @@ def csr_segment_sum(messages_sorted: torch.Tensor,
                       device=messages_sorted.device)
     if v == 0 or h == 0:
         return out
+    shares, scratch = k1_scratch(v, e, h, messages_sorted.device)
     rc = CUDA_KERNELS.load().dmp_csr_segment_sum(
-        messages_sorted.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), v,
-        h, e, messages_sorted.device.index, _stream(messages_sorted.device))
+        messages_sorted.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), v, h, e, shares, messages_sorted.device.index,
+        _stream(messages_sorted.device))
     if rc != 0:
         raise RuntimeError(f"csr_segment_sum: CUDA error {rc} at launch")
     LAUNCHES["csr_segment_sum"] += 1

@@ -3,9 +3,12 @@
 
 Two operations carry the UNC DMPNN layer (unc/model.DualGraphConv):
 
-  K1  segment_sum_sorted(msg [E, H], row_ptr [V+1]) -> [V, H]
-      out[v] = sum of msg[e] over the edges e with receiver v, summed in
-      float32 and cast back to msg.dtype — the node aggregation. Replaces
+  K1  segment_sum_sorted(msg [E, H], row_ptr [V+1], rows=None) -> [V, H]
+      out[v] = sum of msg[e] (or msg[rows[e]]) over the edges e of row v,
+      summed in float32 and cast back to msg.dtype — the node aggregation
+      and the gathers' backward. The kernel splits the work by edges, not
+      rows (merge path; a short stream takes one block per row), and is
+      deterministic. Replaces
       the Pallas windowed segment-sum (_v5_kernel / _v5_impl,
       segment_kernel.py:158-266 of the JAX package).
   K2  gather_rows_sorted(table [Vt, W], idx [E], n_real) -> [E, W]
@@ -28,9 +31,9 @@ unc/model.py:178-276):
   GatherRowsSorted  forward K2; backward K1 over the same sk_rowptr
                     (the real prefix only), cast to the table's dtype;
   GatherRowsPerm    the sender gather: forward a plain index_select;
-                    backward permutes the real edges' cotangent rows into
-                    sender order (sk2_order), then K1 over the sender row
-                    pointer sk2_rowptr.
+                    backward K1 over the sender row pointer sk2_rowptr,
+                    reading the real edges' cotangent rows in sender order
+                    through sk2_order (no permuted copy).
 
 Every backward sums in float32 (K1's accumulator), also under amp: a
 plain index_select's autograd backward would index_add_ into an
@@ -148,40 +151,78 @@ def _stream(device: torch.device) -> int:
 # K1: segment sum
 # -----------------------------------------------------------------------------
 
-def segment_sum_sorted_plain(msg: torch.Tensor,
-                             row_ptr: torch.Tensor) -> torch.Tensor:
+# K1's kernel cuts the V + row_ptr[V] items (row ends and edges) into
+# equal shares, one warp each (csrc/segment_kernels.cu): as many as the
+# card holds warps of it at once, but no more than one per K1_MIN_ITEMS
+# of the V + E items the row pointer may name. The wrapper sizes the
+# scratch for the most the launcher may choose: 64 warps per SM.
+K1_MIN_ITEMS = 16
+K1_MAX_WARPS_PER_SM = 64
+
+
+def k1_scratch(n_rows: int, n_edges: int, width: int,
+               device: torch.device):
+    """-> (max_shares, scratch): the most shares K1's launcher may cut
+    on this device, and their scratch, float32 [2 * max_shares * width]:
+    per share the partial sums of the two rows it may leave cut."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    shares = max(1, min(-(-(n_rows + n_edges) // K1_MIN_ITEMS),
+                        sms * K1_MAX_WARPS_PER_SM))
+    return shares, torch.empty(2 * shares * width, dtype=torch.float32,
+                               device=device)
+
+
+def segment_sum_sorted_plain(msg: torch.Tensor, row_ptr: torch.Tensor,
+                             rows: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Plain PyTorch K1: float32 index_add_ over the rows the row pointer
-    names, cast back to msg.dtype. Edges past row_ptr[-1] are not read."""
+    names, cast back to msg.dtype. Edge e is msg[e], or msg[rows[e]]
+    where rows is given; edges past row_ptr[-1] are not read."""
     v = row_ptr.numel() - 1
     counts = (row_ptr[1:] - row_ptr[:-1]).long()
     recv = torch.repeat_interleave(
         torch.arange(v, device=msg.device), counts)
+    n = recv.numel()
+    src = msg[:n] if rows is None else msg.index_select(0, rows[:n])
     out = torch.zeros(v, msg.shape[1], dtype=torch.float32, device=msg.device)
-    out.index_add_(0, recv, msg[: recv.numel()].float())
+    out.index_add_(0, recv, src.float())
     return out.to(msg.dtype)
 
 
 def segment_sum_sorted(msg: torch.Tensor, row_ptr: torch.Tensor, *,
+                       rows: Optional[torch.Tensor] = None,
                        backward: bool = False) -> torch.Tensor:
-    """msg [E, H] f32|bf16 (receiver-sorted), row_ptr int32 [V+1] ->
-    [V, H] in msg.dtype, accumulated in float32. `backward` only picks
-    the launch count a kernel launch adds to."""
+    """msg [E, H] f32|bf16, row_ptr int32 [V+1] (row_ptr[0] = 0) -> [V, H]
+    in msg.dtype, accumulated in float32. Row v sums edges row_ptr[v] ..
+    row_ptr[v+1] - 1, edge e being msg[e] (a receiver-sorted stream) or,
+    with rows (int64, at least row_ptr[V] entries), msg[rows[e]].
+    `backward` only picks the launch count a kernel launch adds to."""
     _refuse_autograd("segment_sum_sorted", "SegmentSumSorted", msg)
     if msg.device.type == "cpu":
-        return segment_sum_sorted_plain(msg, row_ptr)
+        return segment_sum_sorted_plain(msg, row_ptr, rows)
     _check_cuda("segment_sum_sorted msg", msg, tuple(_DTYPE_CODE), 2)
     _check_cuda("segment_sum_sorted row_ptr", row_ptr, (torch.int32,), 1)
     if row_ptr.device != msg.device:
         raise ValueError("segment_sum_sorted: msg and row_ptr on different "
                          "devices")
     e, h = msg.shape
+    n_edges = e
+    if rows is not None:
+        _check_cuda("segment_sum_sorted rows", rows, (torch.int64,), 1)
+        if rows.device != msg.device:
+            raise ValueError("segment_sum_sorted: msg and rows on different "
+                             "devices")
+        n_edges = rows.numel()
     v = row_ptr.numel() - 1
     out = torch.empty((v, h), dtype=msg.dtype, device=msg.device)
     if v == 0 or h == 0:
         return out
+    shares, scratch = k1_scratch(v, n_edges, h, msg.device)
     rc = CUDA_KERNELS.load().dmp_segment_sum_sorted(
-        msg.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), v, h, e,
-        _DTYPE_CODE[msg.dtype], msg.device.index, _stream(msg.device))
+        msg.data_ptr(), None if rows is None else rows.data_ptr(),
+        row_ptr.data_ptr(), out.data_ptr(), scratch.data_ptr(), v, h, e,
+        n_edges, shares, _DTYPE_CODE[msg.dtype], msg.device.index,
+        _stream(msg.device))
     if rc != 0:
         raise RuntimeError(f"segment_sum_sorted: CUDA error {rc} at launch")
     LAUNCHES["segment_sum_sorted:" + ("bwd" if backward else "fwd")] += 1
@@ -287,9 +328,10 @@ class GatherRowsSorted(torch.autograd.Function):
 
 class GatherRowsPerm(torch.autograd.Function):
     """rows = table[idx] for an unsorted idx (the senders); d table = K1
-    over the sender row pointer of the cotangent rows taken in sender
-    order: `order` picks them (sk2_order: the real edges only), and
-    row_ptr[V] == len(order) (_take_rows_win_perm)."""
+    over the sender row pointer, reading the cotangent rows in sender
+    order through `order` (sk2_order: the real edges only, and
+    row_ptr[V] == len(order)) — the JAX package's segment-sum of
+    g[order] (_take_rows_win_perm) without the permuted copy."""
 
     @staticmethod
     def forward(ctx, table, idx, order, row_ptr):
@@ -303,7 +345,7 @@ class GatherRowsPerm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         order, row_ptr = ctx.saved_tensors
-        grad = segment_sum_sorted(g.index_select(0, order), row_ptr,
+        grad = segment_sum_sorted(g.contiguous(), row_ptr, rows=order,
                                   backward=True)
         return grad.to(ctx.dtype), None, None, None
 

@@ -270,3 +270,170 @@ def test_gather_rejects_bad_n_real():
     table, idx = torch.zeros(5, 2), torch.zeros(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         tsk.gather_rows_sorted(table, idx, 5)
+
+
+@pytest.mark.parametrize("h", [1, 50])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_plain_rows_reads_through_the_index(dtype, h):
+    """segment_sum_sorted(msg, row_ptr, rows=...) on the CPU equals the
+    plain sum of the permuted copy msg[rows], bitwise (the same float32
+    additions in the same order); edges past row_ptr[V] are not read, so
+    rows may be longer and msg may have pad rows."""
+    recv, _, msg, row_ptr = make_stream(8, h=h)
+    n = len(recv)
+    rng = np.random.default_rng(9)
+    perm = np.concatenate([rng.permutation(len(msg))[:n],
+                           np.full(7, -1)])        # never read
+    m = torch.from_numpy(msg).to(torch_dtype(dtype))
+    rp = torch.from_numpy(row_ptr)
+    got = tsk.segment_sum_sorted(m, rp, rows=torch.from_numpy(perm))
+    want = tsk.segment_sum_sorted(m[torch.from_numpy(perm[:n])], rp)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert got.dtype == m.dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("w", [21, 101])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_perm_grad_matches_take_rows_win_perm(dtype, w):
+    """GatherRowsPerm's gradient, which K1 sums through the sender order
+    (rows=) with no permuted copy, against the JAX package's
+    _take_rows_win_perm VJP, whose windowed kernel sums g[order] (Pallas
+    in interpret mode). All edges real. bf16: the kernel's bf16 mode sums
+    in f32, so K1's tolerance. f32: the VJP runs the kernel's default
+    "hilo" mode (two bf16 passes, ~1e-4 accurate), held to the JAX
+    package's own hilo tolerance (2e-3, tests/test_segment_kernel.py), and
+    the port also to 1e-5 of the exact float64 sum."""
+    from dualmessagepassing_tpu.unc.model import _take_rows_win_perm
+
+    rng = np.random.default_rng(20 + w)
+    v, e = 40, 192
+    senders = rng.integers(0, v, e)
+    senders[:50] = 7                                  # a hub
+    rng.shuffle(senders)
+    sub = {"node_mask": np.ones(v, bool), "edge_mask": np.ones(e, bool),
+           "senders": senders,
+           "receivers": np.sort(rng.integers(0, v, e))}
+    planned = sk.attach_scatter_plan(sub, sender_plan=True)
+    order = planned["send_order"]
+    table = rng.normal(size=(v, w)).astype(np.float32)
+    g = rng.normal(size=(e, w)).astype(np.float32)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    plan = [jnp.asarray(planned[k]) for k in
+            ("sk2_recv", "sk2_blk", "sk2_win", "sk2_first")]
+    _, vjp = jax.vjp(lambda t: _take_rows_win_perm(
+        t, jnp.asarray(senders), jnp.asarray(order), *plan),
+        jnp.asarray(table).astype(jd))
+    sk.INTERPRET = True
+    try:
+        want = vjp(jnp.asarray(g).astype(jd))[0]
+    finally:
+        sk.INTERPRET = False
+    sk2 = np.searchsorted(senders[order], np.arange(v + 1)).astype(np.int32)
+    t = torch.from_numpy
+    got = _port_grad(lambda tb: tsk.GatherRowsPerm.apply(
+        tb, t(senders), t(order), t(sk2)), t(table).to(torch_dtype(dtype)),
+        t(g).to(torch_dtype(dtype)))
+    assert got.dtype == torch_dtype(dtype)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "bfloat16":
+        assert_k1_close(got.float(), want, dtype)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+        exact = np.zeros((v, w))
+        np.add.at(exact, senders, g.astype(np.float64))
+        assert_k1_close(got, exact, dtype)
+
+
+def k1_partition(row_ptr, n_shares):
+    """A numpy model of K1's partition (csrc/segment_kernels.cu:
+    merge_split and segment_sum_kernel, the merge path): the V + N
+    items (row ends and edges) in n_shares equal shares. Per share: the
+    rows it writes whole, as {row: edges}; its head (the row it ends that
+    began in an earlier share, its edges here, and the share holding the
+    row's first edge); its carry (the row still open at its end, and its
+    edges here)."""
+    rp = np.asarray(row_ptr, np.int64)
+    v, n = len(rp) - 1, int(rp[-1])
+    total = v + n
+    per = -(-total // n_shares)
+    d = np.minimum(np.arange(n_shares + 1) * per, total)
+    # rows whose end item lies before item d: row x ends at item
+    # row_ptr[x + 1] + x
+    x = np.searchsorted(rp[1:] + np.arange(1, v + 1), d, side="right")
+    shares = []
+    for s in range(n_shares):
+        i0, i1 = int(x[s]), int(x[s + 1])
+        j0, j1 = int(d[s] - i0), int(d[s + 1] - i1)
+        head_cut = i0 < i1 and rp[i0] < j0
+        whole, head, carry = {}, None, None
+        for i in range(i0, i1):
+            edges = range(max(j0, int(rp[i])), int(rp[i + 1]))
+            if i == i0 and head_cut:
+                head = (i, edges, int((rp[i] + i) // per))
+            else:
+                whole[i] = edges
+        if i1 < v and j1 > max(j0, int(rp[i1])):
+            carry = (i1, range(max(j0, int(rp[i1])), j1))
+        shares.append((whole, head, carry))
+    return shares
+
+
+def k1_partition_cases():
+    rng = np.random.default_rng(30)
+    hub = np.sort(np.concatenate([rng.integers(0, 300, 400),
+                                  np.full(2000, 120)]))
+    hub = hub[(hub < 200) | (hub >= 260)]           # an empty band
+    return {
+        "hub_and_empty_band": np.searchsorted(hub, np.arange(301)),
+        "one_row": np.array([0, 777]),               # V = 1
+        "no_edges": np.zeros(51, np.int64),          # n_real = 0
+        "all_in_one_row": np.array([0, 0, 0, 900, 900, 900]),
+        "short_rows": np.searchsorted(np.sort(rng.integers(0, 500, 1900)),
+                                      np.arange(501)),
+    }
+
+
+@pytest.mark.parametrize("n_shares", [1, 7, 64, 5000])
+@pytest.mark.parametrize("case", sorted(k1_partition_cases()))
+def test_k1_partition_covers_every_edge_and_row_once(case, n_shares):
+    """In the model of K1's partition every edge is read once, for its
+    own row; every row is written once: whole by one share, or after the
+    grid barrier by the share that ends it, from the carries of exactly
+    the shares from the one holding the row's first edge to its own,
+    each carrying that row. The sums it builds equal the plain sums."""
+    rp = k1_partition_cases()[case]
+    v, n = len(rp) - 1, int(rp[-1])
+    row_of = np.repeat(np.arange(v), np.diff(rp))
+    msg = np.random.default_rng(31).normal(size=n)
+    shares = k1_partition(rp, n_shares)
+    reads = np.zeros(n, int)
+    writes = np.zeros(v, int)
+    out = np.zeros(v)
+    carries = {}
+    for s, (whole, head, carry) in enumerate(shares):
+        for i, edges in whole.items():
+            assert (row_of[list(edges)] == i).all()
+            reads[list(edges)] += 1
+            writes[i] += 1
+            out[i] = msg[list(edges)].sum()
+        if carry is not None:
+            r, edges = carry
+            assert (row_of[list(edges)] == r).all()
+            reads[list(edges)] += 1
+            carries[s] = (r, msg[list(edges)].sum())
+    for s, (_, head, _) in enumerate(shares):     # after the barrier
+        if head is None:
+            continue
+        r, edges, first = head
+        assert (row_of[list(edges)] == r).all()
+        reads[list(edges)] += 1
+        assert first < s and all(carries[t][0] == r
+                                 for t in range(first, s))
+        assert first == 0 or carries.get(first - 1, (None,))[0] != r
+        writes[r] += 1
+        out[r] = sum(carries[t][1] for t in range(first, s)) + \
+            msg[list(edges)].sum()
+    assert (reads == 1).all() and (writes == 1).all()
+    np.testing.assert_allclose(out, np.bincount(row_of, msg, minlength=v),
+                               rtol=1e-12, atol=1e-12)
