@@ -46,13 +46,42 @@ Phases (any failure raises and the script exits non-zero):
              backward times and K2 2 and 2; per export request each 2;
   6 bench    the port's kernel bench (bench/kernel_bench.py) at 20
              iterations, one JSON line per variant with its event and
-             device times; K3 and K4 launched.
+             device times; K3 and K4 launched;
+  7 backbones CompGCN, R-GCN and R-GIN at the run.sh width (dropout 0):
+             one PubMed-scale training batch, the loss and every parameter
+             gradient on the card against the CPU (phase 5's bounds), f32
+             and amp bf16; the K1/K2 launches of one train step against
+             BACKBONE_STEP_LAUNCHES; an f32 step's CUDA-event ms and
+             torch.profiler device ms with K1's and K2's shares; then
+             train_unc on the first BACKBONE_LINKS links (n_epochs=1
+             rescales to 2 epochs of 10 steps) and its export of 3
+             requests, launches counted from zero;
+  8 attributed DMPNN with a frozen ATTR_WIDTH-wide attribute table made
+             from the seed: loss and gradients on the card against the
+             CPU, f32 and amp bf16, and one step's launches;
+  9 supervised train_unc_supervised (DMPNN, label_batch_size 512),
+             single-label (SUP_CLASSES classes) and multi-label, on
+             synthetic labels of SUP_LABELED nodes: the loss and
+             gradients of one batch on the card against the CPU (f32),
+             then SUP_LINKS links for one epoch of 3 steps, launches
+             counted from zero;
+ 10 evaluate nc_evaluate_arrays on phase 5's exported embeddings with
+             phase 9's synthetic single-label labels (the first
+             EVAL_NODES labeled nodes, SUP_CLASSES classes) and
+             lp_evaluate on a synthetic link.dat.test (LP_SEEDS seed
+             nodes, one true link and LP_NEG random ones each): Macro/
+             Micro-F1, AUC, MRR and seconds, each in [0, 1] — host code,
+             the port's LinearSVC (g++-built LIBLINEAR solvers).
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 0.5, randomwalk sampler, depth 3, width 10) on a synthetic heterogeneous
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
+
+Phases 7-9 print {"paths": {...}} before the kernels line: the K1 and K2
+launches of each of their training runs, counted from zero just before
+it and read just after.
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
 (K1, K2: phase 5's training and export, forward and backward; K3, K4:
@@ -90,13 +119,12 @@ from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
                                                     build_cuda_kernels)
 from dualmessagepassing_tpu_torch.unc.data import WholeGraph, save_embeddings
-from dualmessagepassing_tpu_torch.unc.driver import (export_embeddings,
-                                                     make_unc_optimizer,
-                                                     make_unc_train_step,
-                                                     sample_batch, to_device,
-                                                     train_unc)
-from dualmessagepassing_tpu_torch.unc.model import (UNCTrainModel,
-                                                    apply_unc_forward)
+from dualmessagepassing_tpu_torch.unc import evaluate
+from dualmessagepassing_tpu_torch.unc.driver import (
+    export_embeddings, make_unc_optimizer, make_unc_train_step, sample_batch,
+    sample_supervised_batch, to_device, train_unc, train_unc_supervised)
+from dualmessagepassing_tpu_torch.unc.model import (
+    UNCTrainModel, apply_unc_forward, apply_unc_supervised_forward)
 
 # the reference's UNC DMPNN run.sh (tests/test_reference_commands.py:154)
 N_HIDDEN, N_LAYERS, NEG, GBS = 50, 2, 5, 10000
@@ -155,6 +183,40 @@ K2_OFFSETS = ((0, 0), (1, 3), (3, 1), (0, 5))
 # sender cotangents; K2 receiver gather, aggregation cotangent
 K1_FWD, K1_BWD, K2_FWD, K2_BWD = N_LAYERS, 2 * N_LAYERS, N_LAYERS, N_LAYERS
 
+# --- phases 7-10 ---------------------------------------------------------
+# Per train step of the other backbones (unc/model.py), N_LAYERS layers,
+# 2R = 20 edge types: CompGCN aggregates once per layer (K1 forward, K2
+# backward) and gathers its senders once (K1 backward); R-GCN and R-GIN
+# aggregate once per relation type (2R K1 forward, 2R K2 backward per
+# layer) and gather their senders once (K1 backward). An export forward
+# launches the forward counts of a step.
+TYPES = 2 * PUBMED["num_rels"]
+BACKBONE_STEP_LAUNCHES = {
+    "CompGCN": {"segment_sum_sorted:fwd": N_LAYERS,
+                "segment_sum_sorted:bwd": N_LAYERS,
+                "gather_rows_sorted:bwd": N_LAYERS},
+    "RGCN": {"segment_sum_sorted:fwd": TYPES * N_LAYERS,
+             "segment_sum_sorted:bwd": N_LAYERS,
+             "gather_rows_sorted:bwd": TYPES * N_LAYERS},
+}
+BACKBONE_STEP_LAUNCHES["RGIN"] = BACKBONE_STEP_LAUNCHES["RGCN"]
+DMPNN_STEP_LAUNCHES = {"segment_sum_sorted:fwd": K1_FWD,
+                       "segment_sum_sorted:bwd": K1_BWD,
+                       "gather_rows_sorted:fwd": K2_FWD,
+                       "gather_rows_sorted:bwd": K2_BWD}
+# train_unc at reduced depth: the first 100,000 links, 10 batches of GBS;
+# n_epochs=1 rescales to ceil(10 * GBS / 63,109) = 2 epochs; the export
+# covers the same links in ceil(100,000 / (4 GBS)) = 3 requests
+BACKBONE_LINKS = 100000
+# HNE's PubMed node attributes are 200 wide
+ATTR_WIDTH = 200
+# supervised: PubMed's 8 classes on 4,000 synthetic labeled nodes; one
+# epoch over the first 30,000 links (3 steps)
+SUP_CLASSES, SUP_LABELED, SUP_LINKS, SUP_LABEL_BATCH = 8, 4000, 30000, 512
+# evaluation: 1,000 of phase 9's single-label nodes; link prediction
+# over 500 seed nodes
+EVAL_NODES, LP_SEEDS, LP_NEG = 1000, 500, 5
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -184,13 +246,15 @@ def synthetic_hin(num_nodes: int, num_links: int, num_rels: int,
     return np.stack([s, r, d], axis=1).astype(np.int64)
 
 
-def make_model(num_nodes: int, num_rels: int, seed: int) -> UNCTrainModel:
+def make_model(num_nodes: int, num_rels: int, seed: int,
+               dropout: float = 0.2, **kw) -> UNCTrainModel:
     """Random port weights from a CPU generator, with non-trivial
-    BatchNorm affine terms and running statistics."""
+    BatchNorm affine terms and running statistics (DMPNN); kw picks the
+    backbone, inputs and head (UNCTrainModel)."""
     gen = torch.Generator().manual_seed(seed)
     model = UNCTrainModel(num_nodes, num_rels, N_HIDDEN,
-                          num_hidden_layers=N_LAYERS, dropout=0.2,
-                          reg_param=REG, generator=gen)
+                          num_hidden_layers=N_LAYERS, dropout=dropout,
+                          reg_param=REG, generator=gen, **kw)
     with torch.no_grad():
         for bn in model.modules():
             if isinstance(bn, MaskedBatchNorm):
@@ -562,18 +626,28 @@ def loss_and_grads(model, sub, amp):
                          for k, p in model.named_parameters()}
 
 
-def phase_train_grads(model, graph, triplets, seed, dev) -> dict:
-    padded = train_batch(graph, triplets, seed)
+def phase_train_grads(model, graph, triplets, seed, dev,
+                      label: str = "train grads", loss_fn=None,
+                      amps=(False, True)) -> dict:
+    """The loss and every gradient of one training batch on the card
+    against the CPU. loss_fn(model, amp) -> (loss, grads), given the
+    padded batch, replaces the unsupervised loss (phase 9)."""
     cpu_model = copy.deepcopy(model).cpu()
     dev_model = copy.deepcopy(model).to(dev)
-    sub_cpu, sub_dev = to_device(padded, "cpu"), to_device(padded, dev)
-    res = {(where, amp): loss_and_grads(m, sub, amp)
-           for where, m, sub in (("cpu", cpu_model, sub_cpu),
-                                 ("card", dev_model, sub_dev))
-           for amp in (False, True)}
+    if loss_fn is None:
+        padded = train_batch(graph, triplets, seed)
+        subs = {"cpu": to_device(padded, "cpu"), "card": to_device(padded,
+                                                                   dev)}
+
+        def loss_fn(m, amp):
+            return loss_and_grads(m, subs["card" if m is dev_model
+                                          else "cpu"], amp)
+        print(f"{label}: batch of {GBS} triplets, n_real "
+              f"{padded['n_real']}, {int(padded['node_mask'].sum())} nodes")
+    res = {(where, amp): loss_fn(m, amp)
+           for where, m in (("cpu", cpu_model), ("card", dev_model))
+           for amp in amps}
     torch.cuda.synchronize()
-    print(f"train grads: batch of {GBS} triplets, n_real "
-          f"{padded['n_real']}, {int(padded['node_mask'].sum())} nodes")
     f32 = res[("cpu", False)][1]
     gmax = max(g.abs().max().item() for g in f32.values())
 
@@ -581,7 +655,7 @@ def phase_train_grads(model, graph, triplets, seed, dev) -> dict:
         return sum(((a[k] - b[k]) ** 2).sum().item() for k in a) ** 0.5
 
     worst = {}
-    for amp in (False, True):
+    for amp in amps:
         (lc, gc), (ld, gd) = res[("cpu", amp)], res[("card", amp)]
         check(np.isfinite(ld), "non-finite loss on the card")
         check(abs(ld - lc) <= (1e-3 if amp else 1e-5) * abs(lc),
@@ -607,7 +681,7 @@ def phase_train_grads(model, graph, triplets, seed, dev) -> dict:
                   f"amp gradient L2 distance {l2_card} vs cpu {l2_cpu}")
         name = "amp bf16" if amp else "f32"
         worst[name] = ratio
-        print(f"train grads {name}: loss card {ld:.7f} cpu {lc:.7f}; "
+        print(f"{label} {name}: loss card {ld:.7f} cpu {lc:.7f}; "
               f"{len(gc)} gradients within bound (worst at "
               f"{ratio:.3f} of it)" + (
                   f"; L2 to cpu f32: card {l2_card:.3e}, cpu amp "
@@ -795,7 +869,7 @@ def phase_train(model, triplets, seed) -> dict:
           f"{n_lines} lines; launches {launches} (as counted: per step K1 "
           f"{K1_FWD} fwd + {K1_BWD} bwd, K2 {K2_FWD} fwd + {K2_BWD} bwd; "
           f"per export forward {N_LAYERS} each)")
-    return launches
+    return launches, emb
 
 
 # --- phase 4: serving -----------------------------------------------------
@@ -827,6 +901,258 @@ def run_export(model, graph, triplets, gbs, amp, seed, label):
     check(emb.shape == (graph.num_nodes, N_HIDDEN), "embedding shape")
     check(bool(np.isfinite(emb).all()), "non-finite embeddings")
     return emb, cov, records
+
+
+# --- phases 7-10: the other backbones, attributes, supervised, evaluation --
+
+def step_launches(model, sub, make_step) -> dict:
+    """The kernel launches of one train step of a copy of `model`."""
+    m = copy.deepcopy(model)
+    step = make_step(m, make_unc_optimizer(m, LR, 100, GRAD_NORM))
+    torch.cuda.synchronize()
+    sk.reset_launch_counts()
+    step(sub)
+    torch.cuda.synchronize()
+    return dict(sk.LAUNCHES)
+
+
+def profile_step(model, sub, label) -> dict:
+    """An f32 train step of a copy of `model`: torch.profiler device ms
+    (3 steps) with K1's and K2's shares, and CUDA-event ms (median of
+    5)."""
+    m = copy.deepcopy(model)
+    step = make_unc_train_step(m, make_unc_optimizer(m, LR, 100, GRAD_NORM))
+    step(sub)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            step(sub)
+        torch.cuda.synchronize()
+    events = kernel_bench.device_events(prof)
+    total = kernel_bench.per_call_us(events, 3) / 1e3
+    k1 = kernel_bench.per_call_us(
+        [e for e in events if "segment_sum" in e.key], 3) / 1e3
+    k2 = kernel_bench.per_call_us(
+        [e for e in events if "gather_rows_sorted" in e.key], 3) / 1e3
+    step_ms = kernel_bench.cuda_median_ms(lambda: step(sub), 5, warmup=0)
+    print(f"{label} profile f32: train step {step_ms:.3f} ms (CUDA events, "
+          f"median of 5), {total:.3f} ms device time per step "
+          f"(torch.profiler, 3 steps); K1 {k1:.3f} ms ({100 * k1 / total:.1f}"
+          f" %), K2 {k2:.3f} ms ({100 * k2 / total:.1f} %)")
+    for e in sorted(events, key=kernel_bench.device_us, reverse=True)[:6]:
+        ms = kernel_bench.per_call_us([e], 3) / 1e3
+        print(f"{label} profile f32:   {ms:8.4f} ms {100 * ms / total:5.1f} "
+              f"% x{e.count // 3:<4d} {e.key[:90]}")
+    return dict(step_ms=step_ms, device_ms=total, k1_ms=k1, k2_ms=k2)
+
+
+def epoch_line(label):
+    def on_epoch(rec):
+        steps = [ms for ms in rec["step_ms"] if ms is not None] or [0.0]
+        print(f"{label} epoch {rec['epoch']}: loss {rec['loss']:.6f}, "
+              f"{rec['steps']} steps, step {statistics.median(steps):.3f} ms "
+              f"median ({min(steps):.3f}-{max(steps):.3f}, CUDA events)"
+              + (f", epoch {rec['wall_ms']:.1f} ms wall" if "wall_ms" in rec
+                 else ""))
+    return on_epoch
+
+
+def phase_backbones(graph, triplets, seed, dev) -> dict:
+    """Phase 7: each other backbone's gradients, launches, step profile
+    and a reduced train_unc with its export."""
+    out = {}
+    sub = to_device(train_batch(graph, triplets, seed), dev)
+    n_req = -(-BACKBONE_LINKS // (4 * GBS))
+    for i, backbone in enumerate(("CompGCN", "RGCN", "RGIN")):
+        label = f"backbone {backbone}"
+        model = make_model(PUBMED["num_nodes"], PUBMED["num_rels"],
+                           seed + 10 + i, dropout=0.0, backbone=backbone)
+        worst = phase_train_grads(model, graph, triplets, seed, dev,
+                                  label=f"{label} grads")
+        model = model.to(dev)
+        per_step = BACKBONE_STEP_LAUNCHES[backbone]
+        got = step_launches(model, sub, make_unc_train_step)
+        check(got == per_step, f"{label}: one step launched {got}, "
+              f"expected {per_step}")
+        prof = profile_step(model, sub, label)
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        epochs = []
+        on_epoch = epoch_line(label)
+        emb, cov = train_unc(
+            model, triplets[:BACKBONE_LINKS], PUBMED["num_nodes"],
+            PUBMED["num_rels"], lr=LR, negative_rate=NEG,
+            graph_batch_size=GBS, graph_split_size=SPLIT,
+            sampler="randomwalk", sample_depth=DEPTH, sample_width=WIDTH,
+            n_epochs=1, grad_norm=GRAD_NORM, seed=seed + i,
+            on_epoch=lambda rec: (epochs.append(rec), on_epoch(rec)),
+            log=lambda msg: None)
+        launches = dict(sk.LAUNCHES)
+        steps = sum(rec["steps"] for rec in epochs)
+        fwd = per_step["segment_sum_sorted:fwd"]
+        want = {k: v * steps for k, v in per_step.items()}
+        want["segment_sum_sorted:fwd"] = fwd * (steps + n_req)
+        check(launches == want, f"{label} train_unc launched {launches}, "
+              f"expected {want} for {steps} steps and {n_req} export "
+              "forwards")
+        check(all(np.isfinite(rec["losses"]).all() for rec in epochs)
+              and bool(np.isfinite(emb).all()), f"{label}: non-finite")
+        print(f"{label} train_unc: {len(epochs)} epochs, {steps} steps, "
+              f"{n_req} export requests in {time.perf_counter() - t0:.1f} s "
+              f"wall, coverage {cov:.4f}; launches {launches} (per step "
+              f"{per_step}; per export forward K1 {fwd})")
+        out[backbone] = dict(worst=worst, launches_step=got,
+                             launches_run=launches, **prof)
+        del model
+    return out
+
+
+def attributes(num_nodes: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).normal(
+        size=(num_nodes, ATTR_WIDTH)).astype(np.float32)
+
+
+def phase_attributed(graph, triplets, seed, dev) -> dict:
+    """Phase 8: DMPNN over a frozen attribute table."""
+    model = make_model(PUBMED["num_nodes"], PUBMED["num_rels"], seed,
+                       node_attri=attributes(PUBMED["num_nodes"], seed))
+    worst = phase_train_grads(model, graph, triplets, seed, dev,
+                              label="attributed DMPNN grads")
+    sub = to_device(train_batch(graph, triplets, seed), dev)
+    got = step_launches(model.to(dev), sub, make_unc_train_step)
+    check(got == DMPNN_STEP_LAUNCHES, f"attributed DMPNN: one step launched "
+          f"{got}, expected {DMPNN_STEP_LAUNCHES}")
+    print(f"attributed DMPNN: {ATTR_WIDTH}-wide attributes, one step "
+          f"launches {got}")
+    return dict(worst=worst, launches_step=got)
+
+
+def synthetic_labels(triplets, rng, multi: bool):
+    """SUP_LABELED labeled nodes among the first SUP_LINKS links'
+    endpoints -> (train_indices, train_labels) as unc/data.py's
+    load_supervised and load_label build them."""
+    links = triplets[:SUP_LINKS]
+    pool = np.unique(links[:, [0, 2]])
+    labeled = set(rng.choice(pool, SUP_LABELED, replace=False).tolist())
+    indices = {}
+    for i, (a, _, b) in enumerate(links.tolist()):
+        if a in labeled:
+            indices.setdefault(a, []).append(i)
+        if b in labeled:
+            indices.setdefault(b, []).append(i)
+    if multi:
+        labels = {v: np.unique(rng.integers(0, SUP_CLASSES,
+                                            rng.integers(1, 4)))
+                  for v in indices}
+    else:
+        labels = {v: int(rng.integers(0, SUP_CLASSES)) for v in indices}
+    return links, indices, labels
+
+
+def phase_supervised(graph, triplets, seed, dev) -> dict:
+    """Phase 9: one supervised batch on the card against the CPU, then
+    train_unc_supervised for one epoch, single- and multi-label."""
+    out = {}
+    for multi in (False, True):
+        label = f"supervised {'multi' if multi else 'single'}-label"
+        rng = np.random.default_rng(seed + int(multi))
+        links, indices, labels = synthetic_labels(triplets, rng, multi)
+        model = make_model(PUBMED["num_nodes"], PUBMED["num_rels"],
+                           seed + int(multi), nlabel=SUP_CLASSES,
+                           multi=multi)
+        v = PUBMED["num_nodes"]
+        padded, ml, mi, mm = sample_supervised_batch(
+            graph, links, links[:GBS], indices, labels, SUP_CLASSES, multi,
+            SUP_LABEL_BATCH, "randomwalk", DEPTH, WIDTH, SPLIT, v,
+            min(v * WIDTH, graph.num_edges), np.random.default_rng(seed))
+        padded = sk.attach_csr_plan(padded, sender_plan=True)
+
+        def loss_fn(m, amp):
+            m = copy.deepcopy(m)
+            dev_of = next(m.parameters()).device
+            sub = to_device(padded, dev_of)
+            t = lambda a: torch.from_numpy(a).to(dev_of)  # noqa: E731
+            out_, pred = apply_unc_supervised_forward(m, sub, amp=amp,
+                                                      train=True)
+            loss = m.supervised_loss(out_, sub["edge_type"],
+                                     sub["edge_mask"], pred, t(ml), t(mi),
+                                     t(mm), multi)
+            loss.backward()
+            return loss.item(), {k: p.grad.detach().float().cpu()
+                                 for k, p in m.named_parameters()}
+
+        print(f"{label}: {len(indices)} labeled nodes, batch n_real "
+              f"{padded['n_real']}, {int(mm.sum())} matched labels")
+        worst = phase_train_grads(model, graph, triplets, seed, dev,
+                                  label=f"{label} grads", loss_fn=loss_fn,
+                                  amps=(False,))
+        model = model.to(dev)
+        sk.reset_launch_counts()
+        epochs = []
+        on_epoch = epoch_line(label)
+        t0 = time.perf_counter()
+        train_unc_supervised(
+            model, links, PUBMED["num_nodes"], PUBMED["num_rels"], indices,
+            labels, multi=multi, lr=LR, graph_batch_size=GBS,
+            label_batch_size=SUP_LABEL_BATCH, graph_split_size=SPLIT,
+            sampler="randomwalk", sample_depth=DEPTH, sample_width=WIDTH,
+            n_epochs=1, grad_norm=GRAD_NORM, seed=seed,
+            on_epoch=lambda rec: (epochs.append(rec), on_epoch(rec)),
+            log=lambda msg: None)
+        launches = dict(sk.LAUNCHES)
+        steps = sum(rec["steps"] for rec in epochs)
+        want = {k: n * steps for k, n in DMPNN_STEP_LAUNCHES.items()}
+        check(launches == want, f"{label}: launched {launches}, expected "
+              f"{want} for {steps} steps")
+        check(all(np.isfinite(rec["losses"]).all() for rec in epochs),
+              f"{label}: non-finite loss")
+        print(f"{label} train_unc_supervised: {steps} steps in "
+              f"{time.perf_counter() - t0:.1f} s wall, losses "
+              f"{[round(x, 6) for rec in epochs for x in rec['losses']]}; "
+              f"launches {launches}")
+        out["multi" if multi else "single"] = dict(
+            worst=worst, launches_run=launches, labels=labels,
+            step_ms=[ms for rec in epochs for ms in rec["step_ms"]])
+        del model
+    return out
+
+
+def phase_evaluate(emb, triplets, labeled, seed) -> dict:
+    """Phase 10: the UNC evaluation of phase 5's embeddings; `labeled`
+    maps node -> class (phase 9's single-label labels)."""
+    rng = np.random.default_rng(seed)
+    n = len(emb)
+    nodes = np.asarray(list(labeled)[:EVAL_NODES])
+    labels = np.asarray([labeled[v] for v in nodes.tolist()])
+    t0 = time.perf_counter()
+    macro, micro = evaluate.nc_evaluate_arrays(emb, nodes, labels)
+    nc_s = time.perf_counter() - t0
+    seeds = rng.choice(np.unique(triplets[:, 0]), LP_SEEDS, replace=False)
+    first = {}
+    for a, _, b in triplets.tolist():
+        first.setdefault(a, b)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "link.dat.test")
+        with open(path, "w") as f:
+            for s_ in seeds.tolist():
+                f.write(f"{s_}\t{first[s_]}\t1\n")
+                for o in rng.choice(n, LP_NEG, replace=False).tolist():
+                    f.write(f"{s_}\t{o}\t0\n")
+        emb_dict = {str(i): emb[i] for i in range(n)}
+        t0 = time.perf_counter()
+        auc, mrr = evaluate.lp_evaluate(path, emb_dict)
+        lp_s = time.perf_counter() - t0
+    scores = {"Macro-F1": macro, "Micro-F1": micro, "AUC": auc, "MRR": mrr}
+    check(all(0.0 <= v <= 1.0 for v in scores.values()),
+          f"evaluation scores outside [0, 1]: {scores}")
+    print(f"evaluate nc: {len(nodes)} nodes, {SUP_CLASSES} synthetic "
+          f"classes, 5-fold LinearSVC: Macro-F1 {macro:.4f}, Micro-F1 "
+          f"{micro:.4f}, {nc_s:.2f} s")
+    print(f"evaluate lp: {LP_SEEDS} seed nodes x (1 + {LP_NEG}) test links: "
+          f"AUC {auc:.4f}, MRR {mrr:.4f}, {lp_s:.2f} s")
+    return dict(nc_s=nc_s, lp_s=lp_s, **scores)
 
 
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
@@ -980,7 +1306,7 @@ def main() -> int:
     timed_k1 = phase_k1_train_shapes(graph, triplets, args.seed + 5, dev)
     phase_profile(model, graph, triplets, args.seed + 6, dev)
     model = model.to(dev)
-    train_launches = phase_train(model, triplets, args.seed + 2)
+    train_launches, emb = phase_train(model, triplets, args.seed + 2)
 
     # phase 6: the kernel bench, counted from zero
     sk.reset_launch_counts()
@@ -996,6 +1322,22 @@ def main() -> int:
               f"bench launched {name} {bench_launches.get(name, 0)} times")
     print(f"bench: launches {bench_launches}; total "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
+
+    # phases 7-10: the other backbones, attributed inputs, supervised
+    # training and the evaluation, each training run counted from zero
+    backbones = phase_backbones(graph, triplets, args.seed + 8, dev)
+    attributed = phase_attributed(graph, triplets, args.seed + 9, dev)
+    supervised = phase_supervised(graph, triplets, args.seed + 11, dev)
+    phase_evaluate(emb, triplets, supervised["single"]["labels"],
+                   args.seed + 12)
+    paths = {f"{k}_train_unc": v["launches_run"]
+             for k, v in backbones.items()}
+    paths["attributed_DMPNN_step"] = attributed["launches_step"]
+    paths.update({f"supervised_{k}": v["launches_run"]
+                  for k, v in supervised.items()})
+    print(json.dumps({"paths": paths}))
+    print(f"phases 7-10 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches)))

@@ -7,10 +7,14 @@ and the standard library only — never jax, flax, optax, orbax, sklearn
 or dualmessagepassing_tpu — so it runs on a machine that has none of
 them.
 
-Slices 1 and 2 cover the UNC DMPNN main path on one GPU: host sampling
-(unc/data.py, native.py), the model with its loss (unc/model.py),
-training and the embedding export (unc/driver.py, train/checkpoint.py,
-cli/unc_train.py). Every TPU kernel of the JAX package is a CUDA C++
+The port covers UNC on one GPU: host sampling (unc/data.py,
+native.py), every backbone (DMPNN, CompGCN, R-GCN, R-GIN) with learned,
+attributed or multi-hot inputs and both heads (unc/model.py), training,
+supervised training and the embedding export (unc/driver.py,
+train/checkpoint.py, cli/unc_train.py), and the downstream evaluation
+without scikit-learn (unc/evaluate.py, unc/linear_svc.py over LIBLINEAR's
+solvers in csrc/linear_svc.cpp, cli/unc_evaluate.py; unc/transform.py,
+cli/unc_transform.py). Every TPU kernel of the JAX package is a CUDA C++
 kernel built with nvcc at first use: the windowed segment-sum and
 row-broadcast (csrc/segment_kernels.cu, ops/segment_kernel.py), each
 the other's backward in training, and the two experimental scatter

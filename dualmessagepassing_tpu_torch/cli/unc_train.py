@@ -1,12 +1,19 @@
 """UNC training CLI of the port — the argparse surface of
 dualmessagepassing_tpu/cli/unc_train.py (the reference Model/*/src/
-main.py:221-304) over unc/driver.train_unc, unsupervised DMPNN only.
+main.py:221-304) over unc/driver.train_unc and train_unc_supervised:
+every backbone (--model DMPNN|CompGCN|RGCN|RGIN), attributed inputs
+(--attributed True with --node), supervised training (--supervised True
+with --label; it exports the learned node table, as the JAX CLI does).
 
 python -m dualmessagepassing_tpu_torch.cli.unc_train \
     --link data/link.dat --output emb.dat --model DMPNN \
     --n_hidden 50 --n_layers 2 --sampler randomwalk [--device cpu]
 
-Every command line of the JAX CLI parses here unchanged. The options of
+Every command line of the JAX CLI parses here unchanged. Supervised
+training with attributed inputs is refused: it has no learned node table
+to export (the JAX CLI fails there with a KeyError); so is
+--checkpoint_dir with --supervised True, which the JAX CLI ignores. The
+options of
 the JAX package's sharded and TPU kernel compositions (--ep_devices,
 --ep_mode, --ep_partition, --scatter_backend, --endpoint_gather,
 --pad_cols, --sender_windowed, --recv_bcast) have no counterpart: each
@@ -93,18 +100,15 @@ def get_args(argv=None):
 
 
 def check_supported(args) -> None:
-    """Raise on what the port does not run (yet)."""
-    if args.supervised == "True":
+    """Raise on what the port does not run."""
+    if args.supervised == "True" and args.attributed == "True":
         raise NotImplementedError(
-            "supervised UNC training is not ported yet (ROADMAP.md slice "
-            "B1)")
-    if args.model != "DMPNN":
-        raise NotImplementedError(
-            f"--model {args.model} is not ported yet (ROADMAP.md slice B2)")
-    if args.attributed == "True":
-        raise NotImplementedError(
-            "attributed node inputs are not ported yet (ROADMAP.md slice "
-            "A, the _input_embeddings branches)")
+            "--supervised True exports the learned node table, which "
+            "attributed inputs replace: there is nothing to export (the "
+            "JAX package's CLI fails here with a KeyError)")
+    if args.supervised == "True" and args.checkpoint_dir:
+        raise ValueError("--checkpoint_dir applies to unsupervised "
+                         "training only")
     for name, accepted in _NO_COUNTERPART.items():
         if getattr(args, name) != accepted:
             raise ValueError(
@@ -117,8 +121,9 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from ..unc.data import load_unsupervised, save_embeddings
-    from ..unc.driver import train_unc
+    from ..unc.data import (load_label, load_supervised, load_unsupervised,
+                            save_embeddings)
+    from ..unc.driver import train_unc, train_unc_supervised
     from ..unc.model import UNCTrainModel
 
     args = get_args(argv)
@@ -133,28 +138,48 @@ def main(argv=None):
               flush=True)
 
     log("start loading...")
+    attributed = args.attributed == "True"
+    amp = args.amp.lower() in ("true", "1")
     seed_nodes = set()
     seed_path = (args.node.replace("node.dat", "seed_node.dat")
                  if args.node else
                  os.path.join(os.path.dirname(args.link), "seed_node.dat"))
     if os.path.exists(seed_path):
         seed_nodes = set(int(line) for line in open(seed_path))
-    triplets, n, r, _ = load_unsupervised(args.link)
-    log("finish loading...")
-    model = UNCTrainModel(
-        n, r, args.n_hidden, num_hidden_layers=args.n_layers,
-        dropout=args.dropout, reg_param=args.regularization,
-        generator=torch.Generator().manual_seed(args.seed)).to(device)
-    embs, _ = train_unc(
-        model, triplets, n, r, lr=args.lr,
-        negative_rate=args.negative_sample,
-        graph_batch_size=args.graph_batch_size,
+    sample_kw = dict(
+        lr=args.lr, graph_batch_size=args.graph_batch_size,
         graph_split_size=args.graph_split_size, sampler=args.sampler,
         sample_depth=args.sample_depth, sample_width=args.sample_width,
-        n_epochs=args.n_epochs, grad_norm=args.grad_norm,
-        seed_nodes=seed_nodes or None, seed=args.seed,
-        checkpoint_dir=args.checkpoint_dir or None,
-        amp=args.amp.lower() in ("true", "1"), log=log)
+        n_epochs=args.n_epochs, grad_norm=args.grad_norm, seed=args.seed,
+        amp=amp, log=log)
+
+    def make_model(n, r, **kw):
+        return UNCTrainModel(
+            n, r, args.n_hidden, num_hidden_layers=args.n_layers,
+            dropout=args.dropout, reg_param=args.regularization,
+            generator=torch.Generator().manual_seed(args.seed),
+            backbone=args.model, **kw).to(device)
+
+    if args.supervised == "True":
+        train_pool, train_labels, nlabels, multi = load_label(args.label)
+        triplets, n, r, train_indices, _, _ = load_supervised(
+            args.link, args.node, train_pool)
+        log("finish loading...")
+        model = make_model(n, r, nlabel=nlabels, multi=multi)
+        train_unc_supervised(model, triplets, n, r, train_indices,
+                             train_labels, multi=multi,
+                             label_batch_size=args.label_batch_size,
+                             **sample_kw)
+        embs = model.model.node_emb.detach().float().cpu().numpy()
+    else:
+        triplets, n, r, attrs = load_unsupervised(args.link, args.node,
+                                                  attributed)
+        log("finish loading...")
+        model = make_model(n, r, node_attri=attrs)
+        embs, _ = train_unc(
+            model, triplets, n, r, negative_rate=args.negative_sample,
+            seed_nodes=seed_nodes or None,
+            checkpoint_dir=args.checkpoint_dir or None, **sample_kw)
 
     log("start output...")
     header = str(vars(args))

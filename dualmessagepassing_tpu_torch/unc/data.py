@@ -1,14 +1,14 @@
-"""UNC host data pipeline for the export path: HIN loader, embedding
-writer, whole-graph build, subgraph samplers, negative sampling, edge
-dropout, edge norms and static-envelope padding.
+"""UNC host data pipeline: HIN, attribute and label loaders, embedding
+writer, whole-graph build, subgraph samplers, negative sampling, the
+supervised label batches, edge dropout, edge norms and static-envelope
+padding.
 
 A numpy copy of dualmessagepassing_tpu/unc/data.py:39-433 — the JAX
 package cannot be imported on a machine without jax, since its
 __init__ imports jax and flax. The arrays are identical to the JAX
-package's under the same np.random.Generator (tests/test_torch_unc_data.py).
-The supervised helpers (load_supervised, load_label, labeled edge
-sampling) are not part of this slice, nor is the TPU-only fused-endpoint
-gather's add_pair_keys.
+package's under the same np.random.Generator (tests/test_torch_unc_data.py,
+tests/test_torch_unc_supervised.py). The TPU-only fused-endpoint
+gather's add_pair_keys is not copied.
 
 Reference: HKUST-KnowComp/DualMessagePassing,
 UnsupervisedNodeClassification/Model/DMPNN/src/utils.py (loaders 168-240, samplers 279-434, negative sampling 539-551,
@@ -17,7 +17,7 @@ graph build 473-491, norms 437-453) and main.py:48-218.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -40,6 +40,49 @@ def load_unsupervised(link_path: str, node_path: Optional[str] = None,
     if attributed and node_path:
         attrs = _load_attrs(node_path)
     return triplets, num_nodes, num_rels, attrs
+
+
+def load_supervised(link_path: str, node_path: str, train_pool: set,
+                    attributed: bool = False):
+    """Also returns labeled-node -> incident-edge-index lists
+    (utils.py:168-195): (triplets, num_nodes, num_rels, train_indices,
+    ntrain, attrs|None)."""
+    triplets = []
+    train_indices: Dict[int, List[int]] = {}
+    with open(link_path) as f:
+        header = f.readline().split()
+        num_nodes, num_rels = int(header[0]), int(header[1])
+        for i, line in enumerate(f):
+            row = [int(x) for x in line.split()]
+            triplets.append(row)
+            if row[0] in train_pool:
+                train_indices.setdefault(row[0], []).append(i)
+            if row[-1] in train_pool:
+                train_indices.setdefault(row[-1], []).append(i)
+    attrs = _load_attrs(node_path) if attributed else None
+    return (np.asarray(triplets, np.int64), num_nodes, num_rels,
+            train_indices, len(train_indices), attrs)
+
+
+def load_label(path: str):
+    """-> (train_pool, train_labels, nlabels, multi) (utils.py:198-216);
+    a label with a comma makes the file multi-label from that row on."""
+    train_pool, train_labels, all_labels, multi = set(), {}, set(), False
+    with open(path) as f:
+        for line in f:
+            node, label = line.rstrip("\n").split("\t")
+            node = int(node)
+            train_pool.add(node)
+            if multi or "," in label:
+                multi = True
+                lab = np.asarray(label.split(","), np.int64)
+                train_labels[node] = lab
+                all_labels.update(int(x) for x in lab)
+            else:
+                lab = int(label)
+                train_labels[node] = lab
+                all_labels.add(lab)
+    return train_pool, train_labels, len(all_labels), multi
 
 
 def _load_attrs(path: str) -> np.ndarray:
@@ -206,6 +249,54 @@ def negative_sampling(pos: np.ndarray, num_entity: int, rate: int,
     neg[subj, 0] = values[subj] + (values[subj] >= neg[subj, 0])
     neg[obj, 2] = values[obj] + (values[obj] >= neg[obj, 2])
     return neg
+
+
+def labeled_edges_sampling(train_indices: Dict[int, list], ntrain: int,
+                           if_train: bool, label_batch_size: int,
+                           batch_index: int = 0, rng=None):
+    """Sample labeled nodes and collect their incident edge indices
+    (utils.py:494-509) -> (edge_indices, sampled_node_set)."""
+    rng = rng or np.random.default_rng()
+    if if_train:
+        sampled = set(rng.integers(0, ntrain,
+                                   size=label_batch_size).tolist())
+    else:
+        sampled = set(range(batch_index * label_batch_size,
+                            min(ntrain, (batch_index + 1) * label_batch_size)))
+    new_edges, nodes = [], set()
+    for index, (labeled_node, node_edges) in enumerate(train_indices.items()):
+        if index in sampled:
+            nodes.add(labeled_node)
+            new_edges.append(np.asarray(node_edges))
+    new_edges = (np.unique(np.concatenate(new_edges)) if new_edges
+                 else np.zeros(0, np.int64))
+    return new_edges, nodes
+
+
+def match_labels_to_subgraph(nid: np.ndarray, sampled_nodes: set,
+                             train_labels: Dict, nlabel: int, multi: bool):
+    """Labeled-node targets aligned to SUBGRAPH row positions, so that
+    pred[matched_index] reads the right rows (the reference's
+    correct_order_*, utils.py:515-536, aligns to the seed array; the JAX
+    package aligns to sub['nid'], and so does this copy) ->
+    (matched_labels, matched_index)."""
+    labels, index = [], []
+    for i, n in enumerate(nid):
+        n = int(n)
+        if n in sampled_nodes:
+            if multi:
+                row = np.zeros(nlabel, np.int64)
+                row[train_labels[n]] = 1
+                labels.append(row)
+            else:
+                labels.append(train_labels[n])
+            index.append(i)
+    if multi:
+        labels = (np.asarray(labels, np.int64) if labels
+                  else np.zeros((0, nlabel), np.int64))
+    else:
+        labels = np.asarray(labels, np.int64)
+    return labels, np.asarray(index, np.int64)
 
 
 def convert_subgraph_nids(ori: np.ndarray, nid: np.ndarray) -> np.ndarray:

@@ -1,8 +1,10 @@
 """UNC training and embedding export (dualmessagepassing_tpu/unc/
 driver.py: make_unc_optimizer 34-40, make_unc_train_step 43-67,
-make_unc_embed_step 70-76, sample_batch 79-101, train_unc 273-689).
+make_unc_embed_step 70-76, sample_batch 79-101, make_unc_supervised_step
+104-126, train_unc_supervised 129-270, train_unc 273-689).
 
-train_unc trains the DMPNN on sampled subgraphs, one device: each batch
+train_unc trains a UNC model (any backbone and input layer: they live on
+the UNCTrainModel) on sampled subgraphs, one device: each batch
 of graph_batch_size triplets is sampled on the host by a 2-thread
 prefetch pool, padded to the static (v_max, e_max) envelope, given the
 kernels' CSR plans, and taken through a loss, a backward and a clipped
@@ -12,7 +14,10 @@ embeddings over sampled subgraphs: each request of 4 * graph_batch_size
 triplets runs the model forward and folds into the embedding table with
 the coverage-weighted moving average
     emb[nid] = emb[nid] * (1 - c) + h * c,   c = (subdeg + 1) / (deg + 1)
-(reference main.py:184-209).
+(reference main.py:184-209). train_unc_supervised trains the supervised
+head instead: each batch joins the incident edges of label_batch_size
+sampled labeled nodes to its triplets before sampling, and the loss is
+node_fc's classification loss on the labeled rows.
 
 The JAX driver's sharding and TPU-gate arguments (ep_*, halo_*,
 scatter_backend, pad_cols, recv_bcast, sender_windowed, endpoint_gather)
@@ -39,12 +44,15 @@ from .data import (
     compute_edgenorm,
     convert_subgraph_nids,
     edge_dropout,
+    labeled_edges_sampling,
+    match_labels_to_subgraph,
     negative_sampling,
     pad_subgraph,
     sample_subgraph_by_neighbors,
     sample_subgraph_by_randomwalks,
 )
-from .model import UNCTrainModel, apply_unc_forward
+from .model import (UNCTrainModel, apply_unc_forward,
+                    apply_unc_supervised_forward)
 
 
 def sample_batch(graph: WholeGraph, edges: np.ndarray, sampler: str,
@@ -58,10 +66,7 @@ def sample_batch(graph: WholeGraph, edges: np.ndarray, sampler: str,
     neg = negative_sampling(edges, graph.num_nodes, negative_rate, rng)
     seeds = np.unique(np.concatenate(
         [edges[:, 0], edges[:, 2], neg[:, 0], neg[:, 2]]))
-    if sampler == "neighbor":
-        sub = sample_subgraph_by_neighbors(graph, seeds, depth, width, rng)
-    else:
-        sub = sample_subgraph_by_randomwalks(graph, seeds, depth, width, rng)
+    sub = _sample_subgraph(graph, seeds, sampler, depth, width, rng)
     samples = np.concatenate([edges, neg])
     samples = samples.copy()
     samples[:, 0] = convert_subgraph_nids(samples[:, 0], sub["nid"])
@@ -72,6 +77,50 @@ def sample_batch(graph: WholeGraph, edges: np.ndarray, sampler: str,
     norm = compute_edgenorm(sub)
     return pad_subgraph(sub, samples, labels, v_max, e_max, s_max,
                         edge_norm=norm, send_keys=send_keys)
+
+
+def _sample_subgraph(graph, seeds, sampler, depth, width, rng):
+    if sampler == "neighbor":
+        return sample_subgraph_by_neighbors(graph, seeds, depth, width, rng)
+    return sample_subgraph_by_randomwalks(graph, seeds, depth, width, rng)
+
+
+def sample_supervised_batch(graph: WholeGraph, triplets: np.ndarray,
+                            edges: np.ndarray, train_indices, train_labels,
+                            nlabel: int, multi: bool, label_batch_size: int,
+                            sampler: str, depth: int, width: int,
+                            split_size: float, v_max: int, e_max: int, rng):
+    """The JAX package's train_unc_supervised make_batch (driver.py:
+    179-215; reference generate_sampled_graph_and_labels_supervised,
+    utils.py:352-396): label_batch_size labeled nodes drawn with their
+    incident edges, the subgraph sampled around the batch's and their
+    endpoints, the labels matched to its rows and padded to
+    label_batch_size -> (padded sub with the sender sort, matched_labels
+    (int64 [L], or float32 [L, nlabel] when multi), matched_index int64
+    [L], matched_mask bool [L])."""
+    labeled_edges, sampled_nodes = labeled_edges_sampling(
+        train_indices, len(train_indices), True, label_batch_size, rng=rng)
+    labeled = (triplets[labeled_edges] if len(labeled_edges)
+               else np.zeros((0, 3), np.int64))
+    seeds = np.unique(np.concatenate(
+        [edges[:, 0], edges[:, 2], labeled[:, 0], labeled[:, 2]]))
+    sub = _sample_subgraph(graph, seeds, sampler, depth, width, rng)
+    labels, index = match_labels_to_subgraph(
+        sub["nid"], sampled_nodes, train_labels, nlabel, multi)
+    sub = edge_dropout(sub, split_size, rng)
+    padded = pad_subgraph(sub, np.zeros((0, 3), np.int64),
+                          np.zeros(0, np.float32), v_max, e_max, 1,
+                          edge_norm=compute_edgenorm(sub), send_keys=True)
+    lmax = label_batch_size
+    n_m = min(len(index), lmax)
+    mi = np.zeros(lmax, np.int64)
+    mi[:n_m] = index[:n_m]
+    mm = np.arange(lmax) < n_m
+    ml = (np.zeros((lmax, nlabel), np.float32) if multi
+          else np.zeros(lmax, np.int64))
+    if n_m:
+        ml[:n_m] = labels[:n_m]
+    return padded, ml, mi, mm
 
 
 def to_device(padded: Dict[str, object], device) -> Dict[str, object]:
@@ -141,17 +190,18 @@ def make_unc_optimizer(model: torch.nn.Module, lr: float, total_steps: int,
 
 
 def make_unc_train_step(model: UNCTrainModel, optimizer: UNCOptimizer,
-                        amp: bool = False) -> Callable:
+                        amp: bool = False, generator=None) -> Callable:
     """sub (tensors on the model's device, with the sender plan) -> loss
     (a 0-dim float32 tensor, before the update): one train-mode forward
-    (the BatchNorm running statistics update in place), the DistMult
-    loss, a backward and an optimizer step. amp=True runs the backbone
-    in bf16 with float32 master parameters and a float32 loss
-    (apply_unc_forward)."""
+    (the BatchNorm running statistics update in place, dropout draws
+    from `generator`), the DistMult loss, a backward and an optimizer
+    step. amp=True runs the backbone in bf16 with float32 master
+    parameters and a float32 loss (apply_unc_forward)."""
 
     def step(sub):
         optimizer.zero_grad()
-        out = apply_unc_forward(model, sub, amp=amp, train=True)
+        out = apply_unc_forward(model, sub, amp=amp, train=True,
+                                generator=generator)
         loss = model.unsupervised_loss(
             out, sub["edge_type"], sub["edge_mask"], sub["samples"],
             sub["labels"], sub["sample_mask"], sub["node_mask"])
@@ -160,6 +210,44 @@ def make_unc_train_step(model: UNCTrainModel, optimizer: UNCOptimizer,
         return loss.detach()
 
     return step
+
+
+def make_unc_supervised_step(model: UNCTrainModel, optimizer: UNCOptimizer,
+                             multi: bool, amp: bool = False,
+                             generator=None) -> Callable:
+    """(sub, matched_labels, matched_index, matched_mask) -> loss: as
+    make_unc_train_step, with UNCTrainModel.supervised_loss on node_fc's
+    logits (driver.py:104-126)."""
+
+    def step(sub, ml, mi, mm):
+        optimizer.zero_grad()
+        out, pred = apply_unc_supervised_forward(
+            model, sub, amp=amp, train=True, generator=generator)
+        loss = model.supervised_loss(out, sub["edge_type"], sub["edge_mask"],
+                                     pred, ml, mi, mm, multi)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def export_start_table(model: UNCTrainModel) -> np.ndarray:
+    """The table the export's moving average starts from
+    (driver.py:666-671): the frozen attributes where their width is
+    h_dim, zeros where it is not, else the learned node table; the
+    multi-hot input layer, which the JAX driver never trains, has no
+    node table and starts from zeros."""
+    bb = model.model
+    if bb.node_attri is not None and bb.node_attri.shape[1] == model.h_dim:
+        return bb.node_attri.float().cpu().numpy().copy()
+    if bb.node_emb is None:
+        return np.zeros((bb.num_nodes, model.h_dim), np.float32)
+    return bb.node_emb.detach().float().cpu().numpy().copy()
 
 
 def make_unc_embed_step(model: UNCTrainModel,
@@ -208,15 +296,14 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
     receives one dict per request: request index, host sampling ms,
     forward ms (CUDA events; None off CUDA), real edges and rows, and
     the coverage so far."""
-    device = model.model.node_emb.device
+    device = model_device(model)
     v_max = graph.num_nodes if v_max is None else v_max
     e_max = min(v_max * sample_width, graph.num_edges) if e_max is None \
         else e_max
     bsz = graph_batch_size * 4
     s_max = bsz * (1 + negative_rate)
     embed = make_unc_embed_step(model, amp=amp)
-    node_emb = model.model.full_node_embeddings().detach().float().cpu() \
-        .numpy().copy()
+    node_emb = export_start_table(model)
     seen = np.zeros(graph.num_nodes, bool)
     for i in range(math.ceil(len(triplets) / bsz)):
         edges = triplets[i * bsz: (i + 1) * bsz]
@@ -261,8 +348,11 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
     """Train `model` in place, then export -> (node_embeddings [N, h]
     float32 numpy, coverage fraction) (driver.py:273-689, one device).
 
-    The model's parameters and device are the caller's (h_dim, n_layers,
-    dropout and reg_param live on the model). Sampling draws from
+    The model's parameters and device are the caller's (backbone,
+    node_attri, h_dim, n_layers, dropout and reg_param live on the
+    model; the export starts from export_start_table). Dropout draws
+    from a torch.Generator on the model's device seeded with `seed`.
+    Sampling draws from
     np.random.default_rng(seed) exactly as the JAX package draws: the
     first batch (which the JAX package samples to initialise and compile
     its step) is sampled and dropped; without seed_nodes n_epochs is
@@ -274,18 +364,20 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
     float32, as the JAX package's.
 
     checkpoint_dir: after each epoch the model, optimizer state, loop
-    clocks and the sampling RNG are saved under checkpoint_dir/latest
-    (train/checkpoint.py), and a run finding one resumes from it. The JAX
-    package does not restore its sampling RNG; this one does, so a
-    resumed run continues as the uninterrupted one would.
+    clocks, the sampling RNG and the dropout generator are saved under
+    checkpoint_dir/latest (train/checkpoint.py), and a run finding one
+    resumes from it. The JAX package does not restore its sampling RNG;
+    this one does, so a resumed run continues as the uninterrupted one
+    would.
 
     on_epoch, if given, receives after each epoch (and its checkpoint) a
     dict: epoch, loss, steps, the step losses, host sampling ms per batch
     (in the sampler threads), wait ms per step (the main loop blocked on
     the sampler), step ms (CUDA events; None off CUDA) and the epoch's
     wall-clock ms. on_request is export_embeddings'."""
-    device = model.model.node_emb.device
+    device = model_device(model)
     rng = np.random.default_rng(seed)
+    dropout_gen = torch.Generator(device=device).manual_seed(seed)
     graph = WholeGraph(num_nodes, num_rels, triplets)
     if seed_nodes:
         pool = np.asarray([
@@ -306,7 +398,8 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
 
     optimizer = make_unc_optimizer(model, lr, n_epochs * n_batches,
                                    grad_norm)
-    step = make_unc_train_step(model, optimizer, amp=amp)
+    step = make_unc_train_step(model, optimizer, amp=amp,
+                               generator=dropout_gen)
 
     def sample_and_prepare(edges, brng):
         t0 = time.perf_counter()
@@ -324,7 +417,8 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
     if checkpoint_dir:
         ckpt_path = os.path.join(os.path.abspath(checkpoint_dir), "latest")
         if os.path.exists(ckpt_path):
-            clocks = restore_unc_checkpoint(ckpt_path, model, optimizer)
+            clocks = restore_unc_checkpoint(ckpt_path, model, optimizer,
+                                            dropout_gen)
             start_epoch = clocks["epoch"] + 1
             prev_loss = clocks["prev_loss"]
             rng = rng_from_state(clocks["rng"])
@@ -362,7 +456,8 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
                 save_unc_checkpoint(
                     ckpt_path, model, optimizer,
                     {"epoch": epoch,
-                     "prev_loss": float(min(loss, prev_loss))}, rng)
+                     "prev_loss": float(min(loss, prev_loss))}, rng,
+                    dropout_gen)
             if on_epoch is not None:
                 on_epoch({"epoch": epoch, "loss": loss, "steps": len(losses),
                           "losses": losses, "sample_ms": sample_ms,
@@ -377,3 +472,94 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
         sample_depth=sample_depth, sample_width=sample_width,
         graph_split_size=graph_split_size, negative_rate=negative_rate,
         amp=False, v_max=v_max, e_max=e_max, on_request=on_request, log=log)
+
+
+def train_unc_supervised(model: UNCTrainModel, triplets: np.ndarray,
+                         num_nodes: int, num_rels: int, train_indices,
+                         train_labels, *, multi: bool = False,
+                         lr: float = 1e-2, graph_batch_size: int = 10000,
+                         label_batch_size: int = 512,
+                         graph_split_size: float = 0.5,
+                         sampler: str = "randomwalk", sample_depth: int = 3,
+                         sample_width: int = 10, n_epochs: int = 10,
+                         grad_norm: float = 1.0,
+                         v_max: Optional[int] = None,
+                         e_max: Optional[int] = None, seed: int = 0,
+                         prefetch: int = 2, amp: bool = False,
+                         on_epoch: Optional[Callable[[dict], None]] = None,
+                         log: Callable[[str], None] = print
+                         ) -> UNCTrainModel:
+    """Semi-supervised UNC training of `model` in place (driver.py:
+    129-270; reference main.py's supervised branch) -> the model.
+
+    model has the head: UNCTrainModel(nlabel=..., multi=...).
+    train_indices maps each labeled node to the indices of its incident
+    triplets, train_labels each labeled node to its label (an index
+    array when multi) — unc/data.load_supervised and load_label.
+    Sampling draws from np.random.default_rng(seed) as the JAX package
+    draws: the first batch (its init batch) is sampled and dropped; each
+    epoch shuffles the triplets and spawns one Generator per batch, the
+    batches sampled by `prefetch` threads at most 2 * prefetch ahead
+    (sample_supervised_batch). n_epochs is not rescaled. The schedule
+    spans n_epochs * ceil(len(triplets) / graph_batch_size) steps; an
+    epoch whose mean loss is above the previous one's ends training
+    after it. on_epoch, if given, receives per epoch: epoch, loss,
+    steps, the step losses, step ms (CUDA events; None off CUDA)."""
+    if model.node_fc is None:
+        raise ValueError("train_unc_supervised needs a model with a head "
+                         "(UNCTrainModel(nlabel > 0))")
+    device = model_device(model)
+    rng = np.random.default_rng(seed)
+    dropout_gen = torch.Generator(device=device).manual_seed(seed)
+    graph = WholeGraph(num_nodes, num_rels, triplets)
+    v_max = num_nodes if v_max is None else v_max
+    e_max = min(v_max * sample_width, graph.num_edges) if e_max is None \
+        else e_max
+    n_batches = math.ceil(len(triplets) / graph_batch_size)
+    optimizer = make_unc_optimizer(model, lr, n_epochs * n_batches,
+                                   grad_norm)
+    step = make_unc_supervised_step(model, optimizer, multi, amp=amp,
+                                    generator=dropout_gen)
+
+    def make_batch(edges, brng):
+        padded, ml, mi, mm = sample_supervised_batch(
+            graph, triplets, edges, train_indices, train_labels,
+            model.nlabel, multi, label_batch_size, sampler, sample_depth,
+            sample_width, graph_split_size, v_max, e_max, brng)
+        return attach_csr_plan(padded, sender_plan=True), ml, mi, mm
+
+    make_batch(triplets[:graph_batch_size], rng)            # RNG parity
+    log("training...")
+    prev_loss = float("inf")
+    with ThreadPoolExecutor(max_workers=max(prefetch, 1)) as pool:
+        for epoch in range(n_epochs):
+            order = rng.permutation(len(triplets))
+            batch_list = [triplets[order[i: i + graph_batch_size]]
+                          for i in range(0, len(order), graph_batch_size)]
+            child_rngs = rng.spawn(len(batch_list))
+            window = max(2 * prefetch, 1)
+            futures = {i: pool.submit(make_batch, batch_list[i],
+                                      child_rngs[i])
+                       for i in range(min(window, len(batch_list)))}
+            losses, step_ms = [], []
+            for i in range(len(batch_list)):
+                padded, ml, mi, mm = futures.pop(i).result()
+                nxt = i + window
+                if nxt < len(batch_list):
+                    futures[nxt] = pool.submit(make_batch, batch_list[nxt],
+                                               child_rngs[nxt])
+                sub = to_device(padded, device)
+                ml, mi, mm = (torch.from_numpy(a).to(device)
+                              for a in (ml, mi, mm))
+                loss, ms = _cuda_ms(device, lambda: step(sub, ml, mi, mm))
+                losses.append(float(loss))
+                step_ms.append(ms)
+            loss = sum(losses) / max(len(losses), 1)
+            log(f"Epoch {epoch:05d} | Loss {loss:.4f}")
+            if on_epoch is not None:
+                on_epoch({"epoch": epoch, "loss": loss, "steps": len(losses),
+                          "losses": losses, "step_ms": step_ms})
+            if loss > prev_loss:
+                break
+            prev_loss = loss
+    return model

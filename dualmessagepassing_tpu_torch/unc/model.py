@@ -1,39 +1,50 @@
-"""UNC DMPNN in PyTorch (dualmessagepassing_tpu/unc/model.py:
+"""UNC models in PyTorch (dualmessagepassing_tpu/unc/model.py:
 _onehot_rows 329, UpdateMLP2 407, DualGraphConv 429, UNCDMPNN 667,
-_input_embeddings 955, UNCTrainModel 998 with its DistMult loss and
-regularisers, apply_unc_forward 1176, _masked_mean_sq 1239,
-optax_sigmoid_bce 1248).
+CompGraphConv 731, _flat_relation_agg 802, RelGraphConvFlat 831, Dense_
+876, UNCCompGCN 887, UNCRGNN 919, _input_embeddings 955, UNCTrainModel
+998 with its DistMult and supervised losses and regularisers,
+apply_unc_forward 1176, _masked_mean_sq 1239, optax_sigmoid_bce 1248).
 
 Reference: HKUST-KnowComp/DualMessagePassing,
-UnsupervisedNodeClassification/Model/DMPNN/src/model.py (DualGraphConv 117-280, DMPNN 283-328, TrainModel 632-737).
+UnsupervisedNodeClassification/Model/{DMPNN,CompGCN,R-GCN,R-GIN}/src/
+model.py (DMPNN: DualGraphConv 117-280, DMPNN 283-328, TrainModel
+632-737).
 
 Reference quirks preserved, as in the JAX package:
   * DualGraphConv's dropout calls discard their result (model.py:245,260)
     — the `dropout` argument is kept for config parity and does nothing;
+    CompGraphConv and RelGraphConvFlat drop for real (in train mode,
+    from the torch.Generator the forward is given);
   * unused nfc/efc Linear layers are not reproduced;
   * update MLP is Linear-[BN]-LeakyReLU(1/5.5)-Linear with xavier-uniform
     weights and zero biases (model.py:146-168);
   * tanh between hidden layers, no activation after the last
     (model.py:299-308);
-  * r-bar = per-relation mean of final edge outputs (model.py:319-325).
+  * r-bar = per-relation mean of final edge outputs (model.py:319-325);
+  * R-GIN drops the edge norm and adds a Dense (gain sqrt 2) before its
+    activation (R-GIN/src/model.py:150-157).
 
 Port notes:
   * Parameters keep JAX's names and [in, out] layout (x @ W), so
-    params_from_flax is a copy of the flax tree.
+    params_from_flax is a copy of the flax tree, for every backbone.
   * The compute dtype is an argument of forward: float32 master
     parameters are cast to it at use (utils/amp.py). Node and relation
     rows are gathered from the float32 tables and cast afterwards — the
     same values as casting first, and it keeps a later backward in f32.
-  * The layer has one composition. Every lowering choice of the JAX
-    layer (scatter_backend, pad_cols, recv_bcast, sender_windowed,
+  * Each layer has one composition. Every lowering choice of the JAX
+    layers (scatter_backend, pad_cols, recv_bcast, sender_windowed,
     sorted_edges, the fused endpoint gather) computes the same numbers
-    and is tested equal to its plain path, so none exists here. The
-    layer runs through the autograd pairings of ops/segment_kernel.py:
-    the receiver gather of the [V, 2H+1] endpoint table is K2 (backward
-    K1), the node aggregation is K1 (backward K2), and the sender gather
-    is an index_select whose backward is K1 over the sender row pointer.
-    They need the host CSR plan (sk_rowptr, n_real; for a backward also
-    sk2_order and sk2_rowptr: ops/segment_kernel.attach_csr_plan).
+    and is tested equal to its plain path, so none exists here. (The
+    JAX package's UNCCompGCN and UNCRGNN do not pass scatter_backend to
+    their layers, so they always take its XLA scatter; the numbers are
+    the same.) The layers run through the autograd pairings of
+    ops/segment_kernel.py: every node aggregation is K1 (backward K2) —
+    R-GCN/R-GIN run it once per relation type, 2R launches per layer;
+    DualGraphConv's receiver gather of the [V, 2H+1] endpoint table is
+    K2 (backward K1); every sender gather is an index_select whose
+    backward is K1 over the sender row pointer. They need the host CSR
+    plan (sk_rowptr, n_real; for a backward also sk2_order and
+    sk2_rowptr: ops/segment_kernel.attach_csr_plan).
   * K2 returns zero rows for pad edges where a plain gather returns
     table[last receiver]; pad edges are masked everywhere they could
     reach a real output, so compare valid rows only. For the same
@@ -55,7 +66,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..constants import LEAKY_RELU_A
+from ..models.compgcn import comp_func
 from ..models.layers import MaskedBatchNorm
+from ..ops.encoding import get_enc_len, multihot_table
 from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
                                   gather_rows_perm)
 from ..utils.amp import cast_floats
@@ -85,6 +98,20 @@ def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
     return F.one_hot(idx, n).to(table.dtype) @ table
 
 
+def _dropout(x: torch.Tensor, rate: float, train: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout: in train mode keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate); identity otherwise. The
+    mask is drawn from `generator` (on x's device)."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def _out_degrees(sub: Sub) -> torch.Tensor:
     """Global out-degrees over real edges (pad_subgraph ships them as
     sub["out_deg"]; this is the in-model fallback)."""
@@ -95,11 +122,15 @@ def _out_degrees(sub: Sub) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """x @ kernel + bias with an [in, out] kernel (flax nn.Dense names)."""
+    """x @ kernel + bias with an [in, out] xavier-uniform kernel of the
+    given gain and a zero bias (flax nn.Dense names; gain sqrt(2) is the
+    JAX package's Dense_)."""
 
-    def __init__(self, in_dim: int, out_dim: int, generator=None):
+    def __init__(self, in_dim: int, out_dim: int, generator=None,
+                 gain: float = 1.0):
         super().__init__()
-        self.kernel = _param(xavier_uniform(1.0), (in_dim, out_dim), generator)
+        self.kernel = _param(xavier_uniform(gain), (in_dim, out_dim),
+                             generator)
         self.bias = _zeros(out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -211,18 +242,71 @@ class DualGraphConv(nn.Module):
         return n_out, e_out
 
 
-class UNCDMPNN(nn.Module):
-    """DMPNN UNC model: learned node/relation embeddings + DualGraphConv
-    stack (model.py:283-328). Returns (h, z, r_bar)."""
+class _Backbone(nn.Module):
+    """The input layer every UNC backbone shares (unc/model.py:955-995):
+    node rows from a frozen attribute table (EmbeddingLayerAttri), from
+    a frozen multi-hot encoding of the node id times a learned
+    projection (MultiHotEmbeddingLayer), or from a learned table
+    (EmbeddingLayer); relation rows from a learned table where the
+    backbone has a relation stream (DMPNN, CompGCN).
+
+    node_attri (numpy or tensor [N, A]) and the multi-hot table are
+    buffers that state_dict leaves out: they are inputs, not weights."""
+
+    def __init__(self, num_nodes: int, num_rels: int, h_dim: int,
+                 rel_stream: bool, node_attri=None,
+                 multihot_input: bool = False, generator=None):
+        super().__init__()
+        self.num_nodes = num_nodes
+        self.num_rels = num_rels          # already doubled by the caller
+        self.node_emb = self.node_emb_proj = self.rel_emb = None
+        attri = multihot = None
+        emb_init = embedding_uniform(h_dim)
+        if node_attri is not None:
+            attri = torch.as_tensor(np.asarray(node_attri, np.float32))
+        elif multihot_input:
+            enc_len = get_enc_len(num_nodes - 1, 2)
+            multihot = torch.from_numpy(multihot_table(num_nodes, 2))
+            scale = 1.0 / math.sqrt(float(h_dim * enc_len))
+            self.node_emb_proj = _param(
+                lambda shape, g: (torch.rand(shape, generator=g) * 2 - 1)
+                * scale, (enc_len * 2, h_dim), generator)
+        else:
+            self.node_emb = _param(emb_init, (num_nodes, h_dim), generator)
+        if rel_stream:
+            self.rel_emb = _param(emb_init, (num_rels, h_dim), generator)
+        self.register_buffer("node_attri", attri, persistent=False)
+        self.register_buffer("multihot", multihot, persistent=False)
+
+    def input_embeddings(self, sub: Sub, dtype: torch.dtype):
+        """-> (node rows [V, h] in `dtype`, relation rows [E, h] or None).
+        The attribute and multi-hot rows are gathered, then cast (the same
+        values as the JAX package's cast-then-gather); learned node rows
+        come from the float32 table (nid holds distinct ids, so the
+        backward sums nothing), relation rows through _onehot_rows."""
+        nid = sub["nid"]
+        if self.node_attri is not None:
+            h = self.node_attri[nid].to(dtype)
+        elif self.multihot is not None:
+            h = self.multihot[nid].to(dtype) @ self.node_emb_proj.to(dtype)
+        else:
+            h = self.node_emb[nid].to(dtype)
+        z = None
+        if self.rel_emb is not None:
+            z = _onehot_rows(self.rel_emb, sub["edge_type"]).to(dtype)
+        return h, z
+
+
+class UNCDMPNN(_Backbone):
+    """DMPNN UNC model: the shared input layer + DualGraphConv stack
+    (model.py:283-328). Returns (h, z, r_bar)."""
 
     def __init__(self, num_nodes: int, num_rels: int, h_dim: int,
                  out_dim: int, num_hidden_layers: int = 1,
-                 dropout: float = 0.0, generator=None):
-        super().__init__()
-        self.num_rels = num_rels          # already doubled by the caller
-        emb_init = embedding_uniform(h_dim)
-        self.node_emb = _param(emb_init, (num_nodes, h_dim), generator)
-        self.rel_emb = _param(emb_init, (num_rels, h_dim), generator)
+                 dropout: float = 0.0, node_attri=None,
+                 multihot_input: bool = False, generator=None):
+        super().__init__(num_nodes, num_rels, h_dim, True, node_attri,
+                         multihot_input, generator)
         self.layers = nn.ModuleList([
             DualGraphConv(
                 h_dim if i == 0 else out_dim, out_dim,
@@ -230,17 +314,8 @@ class UNCDMPNN(nn.Module):
                 dropout=dropout, generator=generator)
             for i in range(num_hidden_layers)])
 
-    def input_embeddings(self, sub: Sub, dtype: torch.dtype):
-        """EmbeddingLayer on the learned-embedding branch
-        (unc/model.py:979-994): node rows gathered from the float32 table
-        (nid holds distinct ids, so the backward sums nothing), relation
-        rows through _onehot_rows; both cast to the compute dtype."""
-        h = self.node_emb[sub["nid"]].to(dtype)
-        z = _onehot_rows(self.rel_emb, sub["edge_type"]).to(dtype)
-        return h, z
-
     def forward(self, sub: Sub, train: bool = False,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, generator=None):
         h, z = self.input_embeddings(sub, dtype)
         # the (layer-invariant) global out-degree, hoisted out of the layers
         if "out_deg" not in sub:
@@ -260,35 +335,239 @@ class UNCDMPNN(nn.Module):
         r_bar = sums / (cnts + 1e-8)
         return h, z, r_bar
 
-    def full_node_embeddings(self) -> torch.Tensor:
-        """The learned embedding table (main.py:187 node_emb.weight)."""
-        return self.node_emb
+
+class CompGraphConv(nn.Module):
+    """UNC CompGCN layer (Model/CompGCN/src/model.py:117-264): the sender
+    rows composed with the edge rows by circular correlation, in/out
+    weights by rev_flag, the edge norm, aggregation at the receivers,
+    the 1/3 self-loop average (comp(h, loop_rel) @ W_loop; 1/2 without
+    a self loop), bias, activation, dropout; the edge stream is
+    z @ W_rel. (The JAX layer's batch_norm option, off in every UNC
+    backbone, is not ported.)"""
+
+    def __init__(self, in_dim: int, hidden_dim: int, comp_opt: str = "corr",
+                 self_loop: bool = True, use_bias: bool = True,
+                 activation: Optional[str] = None, dropout: float = 0.0,
+                 generator=None):
+        super().__init__()
+        self.comp_opt = comp_opt
+        self.activation = activation
+        self.dropout = dropout
+        shape = (in_dim, hidden_dim)
+        init = xavier_uniform(1.0)
+        self.in_weight = _param(init, shape, generator)
+        self.out_weight = _param(init, shape, generator)
+        self.rel_weight = _param(init, shape, generator)
+        self.self_loop = self_loop
+        if self_loop:
+            self.loop_weight = _param(init, shape, generator)
+            self.loop_rel = _param(init, (1, in_dim), generator)
+        self.use_bias = use_bias
+        if use_bias:
+            self.bias = _zeros(hidden_dim)
+
+    def forward(self, sub: Sub, node_feat: torch.Tensor,
+                edge_feat: torch.Tensor, edge_norm=None, train: bool = False,
+                generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = node_feat.dtype
+        at_send = gather_rows_perm(node_feat, sub["senders"],    # bwd K1
+                                   sub.get("sk2_order"), sub.get("sk2_rowptr"))
+        comp = comp_func(at_send, edge_feat, self.comp_opt)
+        msg = torch.where(sub["rev_flag"][:, None],
+                          comp @ self.out_weight.to(dt),
+                          comp @ self.in_weight.to(dt))
+        if edge_norm is not None:
+            msg = msg * edge_norm.to(msg.dtype)
+        msg = torch.where(sub["edge_mask"][:, None], msg, 0.0)
+        agg = SegmentSumSorted.apply(                            # K1, bwd K2
+            msg, sub["sk_rowptr"], sub["receivers"], sub["n_real"])
+        if self.self_loop:
+            loop = comp_func(node_feat, self.loop_rel.to(dt), self.comp_opt)
+            out = (agg + loop @ self.loop_weight.to(dt)) * 0.3333333
+        else:
+            out = agg * 0.5
+        if self.use_bias:
+            out = out + self.bias.to(dt)
+        if self.activation == "tanh":
+            out = torch.tanh(out)
+        out = _dropout(out, self.dropout, train, generator)
+        return out, edge_feat @ self.rel_weight.to(dt)
+
+
+class UNCCompGCN(_Backbone):
+    """CompGCN UNC backbone (Model/CompGCN/src/model.py:267-305).
+    Returns (h, z): the relation stream is transformed per layer."""
+
+    def __init__(self, num_nodes: int, num_rels: int, h_dim: int,
+                 out_dim: int, num_hidden_layers: int = 1,
+                 dropout: float = 0.0, node_attri=None,
+                 multihot_input: bool = False, generator=None):
+        super().__init__(num_nodes, num_rels, h_dim, True, node_attri,
+                         multihot_input, generator)
+        self.layers = nn.ModuleList([
+            CompGraphConv(
+                h_dim if i == 0 else out_dim, out_dim, comp_opt="corr",
+                activation="tanh" if i < num_hidden_layers - 1 else None,
+                dropout=dropout, generator=generator)
+            for i in range(num_hidden_layers)])
+
+    def forward(self, sub: Sub, train: bool = False,
+                dtype: torch.dtype = torch.float32, generator=None):
+        h, z = self.input_embeddings(sub, dtype)
+        norm = sub.get("edge_norm")
+        for layer in self.layers:
+            h, z = layer(sub, h, z, edge_norm=norm, train=train,
+                         generator=generator)
+        return h, z
+
+
+def _flat_relation_agg(sub: Sub, src: torch.Tensor,
+                       weights: torch.Tensor) -> torch.Tensor:
+    """agg[v] = sum over the edges e -> v of src[e] @ W[rel(e)], relation
+    by relation as the JAX package's scan (unc/model.py:802-828): mask
+    the stream to relation r, K1 over the masked [E, din] stream, then
+    partial @ W_r into a carry held in src's dtype (bf16 under amp, as
+    the JAX package's). 2R K1 launches forward, 2R K2 backward."""
+    carry = torch.zeros(sub["node_mask"].shape[0], weights.shape[2],
+                        dtype=src.dtype, device=src.device)
+    valid = sub["edge_mask"]
+    for r in range(weights.shape[0]):
+        sel = valid & (sub["edge_type"] == r)
+        masked = torch.where(sel[:, None], src, 0.0)
+        partial = SegmentSumSorted.apply(                        # K1, bwd K2
+            masked, sub["sk_rowptr"], sub["receivers"], sub["n_real"])
+        carry = carry + partial @ weights[r]
+    return carry
+
+
+class RelGraphConvFlat(nn.Module):
+    """dgl RelGraphConv (basis, num_bases = num_rels) on the flat
+    subgraph: msg = src @ W_rel(e) [* norm]; out = act(agg + h @ W_loop +
+    b), then dropout. R-GCN applies the edge norm; R-GIN (iso_layer)
+    drops it and adds out_layer, a Dense of gain sqrt(2), before the
+    activation (R-GIN/src/model.py:150-157)."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, num_rels: int,
+                 self_loop: bool = True, use_bias: bool = True,
+                 activation: Optional[str] = None, use_norm: bool = True,
+                 iso_layer: bool = False, dropout: float = 0.0,
+                 generator=None):
+        super().__init__()
+        self.activation = activation
+        self.use_norm = use_norm
+        self.dropout = dropout
+        init = xavier_uniform(1.0)
+        self.weight = _param(init, (num_rels, in_dim, hidden_dim), generator)
+        self.self_loop = self_loop
+        if self_loop:
+            self.loop_weight = _param(init, (in_dim, hidden_dim), generator)
+        self.use_bias = use_bias
+        if use_bias:
+            self.bias = _zeros(hidden_dim)
+        self.out_layer = (Dense(hidden_dim, hidden_dim, generator,
+                                gain=math.sqrt(2.0)) if iso_layer else None)
+
+    def forward(self, sub: Sub, node_feat: torch.Tensor, edge_norm=None,
+                train: bool = False, generator=None) -> torch.Tensor:
+        dt = node_feat.dtype
+        src = gather_rows_perm(node_feat, sub["senders"],        # bwd K1
+                               sub.get("sk2_order"), sub.get("sk2_rowptr"))
+        if self.use_norm and edge_norm is not None:
+            src = src * edge_norm.to(dt)
+        out = _flat_relation_agg(sub, src, self.weight.to(dt))
+        if self.self_loop:
+            out = out + node_feat @ self.loop_weight.to(dt)
+        if self.use_bias:
+            out = out + self.bias.to(dt)
+        if self.out_layer is not None:
+            out = self.out_layer(out)
+        if self.activation == "tanh":
+            out = torch.tanh(out)
+        return _dropout(out, self.dropout, train, generator)
+
+
+class UNCRGNN(_Backbone):
+    """R-GCN / R-GIN UNC backbones (Model/R-GCN,R-GIN/src/model.py), kind
+    "rgcn" or "rgin". Returns (h,)."""
+
+    def __init__(self, kind: str, num_nodes: int, num_rels: int, h_dim: int,
+                 out_dim: int, num_hidden_layers: int = 1,
+                 dropout: float = 0.0, node_attri=None,
+                 multihot_input: bool = False, generator=None):
+        super().__init__(num_nodes, num_rels, h_dim, False, node_attri,
+                         multihot_input, generator)
+        self.kind = kind
+        self.layers = nn.ModuleList([
+            RelGraphConvFlat(
+                h_dim if i == 0 else out_dim, out_dim, num_rels,
+                activation="tanh" if i < num_hidden_layers - 1 else None,
+                use_norm=kind == "rgcn", iso_layer=kind == "rgin",
+                dropout=dropout, generator=generator)
+            for i in range(num_hidden_layers)])
+
+    def forward(self, sub: Sub, train: bool = False,
+                dtype: torch.dtype = torch.float32, generator=None):
+        h, _ = self.input_embeddings(sub, dtype)
+        norm = sub.get("edge_norm")
+        for layer in self.layers:
+            h = layer(sub, h, edge_norm=norm, train=train,
+                      generator=generator)
+        return (h,)
+
+
+BACKBONES = ("DMPNN", "CompGCN", "RGCN", "RGIN")
 
 
 class UNCTrainModel(nn.Module):
-    """DistMult link-prediction model around the DMPNN backbone
-    (model.py:632-737): the unsupervised loss and its regularisers. The
-    supervised head (node_fc, supervised_loss) is not ported yet."""
+    """DistMult link prediction and the supervised head around a UNC
+    backbone (model.py:632-737): the losses and their regularisers."""
 
     def __init__(self, num_nodes: int, num_rels: int, h_dim: int,
                  num_hidden_layers: int = 1, dropout: float = 0.0,
-                 reg_param: float = 0.0, generator=None):
+                 reg_param: float = 0.0, generator=None, *,
+                 nlabel: int = 0, node_attri=None, backbone: str = "DMPNN",
+                 multi: bool = False, multihot_input: bool = False):
         """num_rels is the ORIGINAL relation count; the backbone embeds
-        both directions (2 * num_rels edge types)."""
+        both directions (2 * num_rels edge types). node_attri [N, A]
+        (frozen inputs, i_dim = A) or multihot_input replace the learned
+        node table; nlabel > 0 adds the supervised head node_fc."""
         super().__init__()
+        if backbone not in BACKBONES:
+            raise NotImplementedError(backbone)
         self.num_rels = num_rels
         self.h_dim = h_dim
         self.reg_param = reg_param
-        self.model = UNCDMPNN(num_nodes, num_rels * 2, h_dim, h_dim,
-                              num_hidden_layers, dropout, generator)
+        self.nlabel = nlabel
+        self.multi = multi
+        self.backbone = backbone
+        i_dim = h_dim if node_attri is None else np.shape(node_attri)[1]
+        args = (num_nodes, num_rels * 2, i_dim, h_dim, num_hidden_layers,
+                dropout)
+        kw = dict(node_attri=node_attri, multihot_input=multihot_input,
+                  generator=generator)
+        if backbone == "DMPNN":
+            self.model = UNCDMPNN(*args, **kw)
+        elif backbone == "CompGCN":
+            self.model = UNCCompGCN(*args, **kw)
+        else:
+            self.model = UNCRGNN(backbone.lower(), *args, **kw)
+        # created in both modes, as the JAX package does (its note at
+        # unc/model.py:1079-1082)
         self.w_relation = _param(xavier_uniform(math.sqrt(2.0)),
                                  (num_rels, h_dim), generator)
-        self.edge_fc = Dense(h_dim, h_dim, generator)
+        self.node_fc = (Dense(h_dim, nlabel, generator) if nlabel > 0
+                        else None)
+        # the edge-stream regulariser's Dense; R-GCN/R-GIN have no edge
+        # stream, and the JAX package's lazy init creates none for them
+        self.edge_fc = (Dense(h_dim, h_dim, generator)
+                        if backbone in ("DMPNN", "CompGCN") else None)
 
     def forward(self, sub: Sub, train: bool = False,
-                dtype: torch.dtype = torch.float32):
-        """-> (h [V, H], z [E, H], r_bar [2R, H]) in `dtype` (r_bar f32)."""
-        return self.model(sub, train=train, dtype=dtype)
+                dtype: torch.dtype = torch.float32, generator=None):
+        """-> the backbone's output tuple in `dtype` (DMPNN (h, z, r_bar),
+        r_bar float32; CompGCN (h, z); R-GCN/R-GIN (h,)). `generator`
+        draws the dropout masks of a train-mode forward."""
+        return self.model(sub, train=train, dtype=dtype, generator=generator)
 
     def calc_score(self, node_emb: torch.Tensor,
                    triplets: torch.Tensor) -> torch.Tensor:
@@ -332,6 +611,27 @@ class UNCTrainModel(nn.Module):
         reg = self.regularization(embedding, edge_type, edge_mask, node_mask)
         return predict_loss + self.reg_param * reg
 
+    def supervised_loss(self, embedding, edge_type, edge_mask, pred,
+                        matched_labels, matched_index, matched_mask,
+                        multi: bool) -> torch.Tensor:
+        """Masked mean over the matched rows of pred (node_fc's logits at
+        matched_index): multi-label, the mean over labels of the BCE
+        through log_sigmoid; single-label, -log_softmax at the label.
+        Plus reg_param times the regulariser, which, as the JAX package's
+        (model.py:1158-1173), is given no node mask."""
+        p = pred[matched_index]
+        if multi:
+            ml = matched_labels.to(p.dtype)
+            bce = -(ml * F.logsigmoid(p) + (1 - ml) * F.logsigmoid(-p))
+            per = bce.mean(1)
+        else:
+            logits = F.log_softmax(p, dim=-1)
+            per = -logits.gather(1, matched_labels.long()[:, None])[:, 0]
+        cnt = matched_mask.sum().clamp(min=1)
+        predict_loss = torch.where(matched_mask, per, 0.0).sum() / cnt
+        reg = self.regularization(embedding, edge_type, edge_mask)
+        return predict_loss + self.reg_param * reg
+
 
 def _masked_mean_sq(x: torch.Tensor, mask=None) -> torch.Tensor:
     if mask is None:
@@ -348,16 +648,31 @@ def optax_sigmoid_bce(logits: torch.Tensor,
 
 
 def apply_unc_forward(model: UNCTrainModel, sub: Sub, amp: bool = False,
-                      train: bool = False):
+                      train: bool = False, generator=None):
     """Forward with optional bf16 mixed precision
     (unc/model.py:1176-1208). amp=True runs the backbone with float32
     master parameters cast to bf16 at use, and casts the outputs back to
     float32. In train mode the BatchNorm running statistics are updated
-    in place (they stay float32). Returns the output tuple."""
+    in place (they stay float32) and dropout draws from `generator`.
+    Returns the output tuple."""
+    return apply_unc_supervised_forward(model, sub, amp, train,
+                                        generator)[0]
+
+
+def apply_unc_supervised_forward(model: UNCTrainModel, sub: Sub,
+                                 amp: bool = False, train: bool = False,
+                                 generator=None):
+    """apply_unc_forward and the supervised head -> (output tuple, pred):
+    pred = node_fc(h) in the compute dtype, as the JAX package's
+    __call__ runs it inside the bf16 apply, then float32 (None without
+    a head)."""
+    dtype = torch.bfloat16 if amp else torch.float32
+    out = model(sub, train=train, dtype=dtype, generator=generator)
+    pred = model.node_fc(out[0]) if model.node_fc is not None else None
     if amp:
-        return cast_floats(model(sub, train=train, dtype=torch.bfloat16),
-                           torch.float32)
-    return model(sub, train=train)
+        return cast_floats(out, torch.float32), cast_floats(pred,
+                                                            torch.float32)
+    return out, pred
 
 
 # -----------------------------------------------------------------------------
@@ -392,8 +707,8 @@ def _torch_name(path, stats: bool) -> str:
 def params_from_flax(params: Mapping,
                      batch_stats: Optional[Mapping] = None
                      ) -> Dict[str, torch.Tensor]:
-    """Map a JAX UNCTrainModel(backbone="DMPNN") variable tree onto this
-    module's state_dict. `params` and `batch_stats` are the nested dicts
+    """Map a JAX UNCTrainModel variable tree (any backbone, any input
+    layer, with or without node_fc) onto this module's state_dict. `params` and `batch_stats` are the nested dicts
     of the flax variables (numpy arrays, or anything np.asarray takes);
     kernels keep their [in, out] layout, so every leaf is a copy.
     BatchNorm scale -> weight, mean/var -> running_mean/running_var."""

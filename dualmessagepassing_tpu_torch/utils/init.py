@@ -23,11 +23,18 @@ def _uniform(shape, generator, low: float, high: float) -> torch.Tensor:
     return u * (high - low) + low
 
 
+def _fans(shape):
+    """(fan_in, fan_out) as the JAX package counts them: the last two
+    axes, each times the product of the leading (receptive) axes."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
 def xavier_uniform(gain: float = 1.0) -> Init:
     """U(-a, a), a = sqrt(3) * gain * sqrt(2 / (fan_in + fan_out))."""
 
     def init(shape, generator):
-        fan_in, fan_out = shape[-2], shape[-1]
+        fan_in, fan_out = _fans(shape)
         a = math.sqrt(3.0) * gain * math.sqrt(2.0 / float(fan_in + fan_out))
         return _uniform(shape, generator, -a, a)
 

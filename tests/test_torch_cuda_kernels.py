@@ -21,6 +21,7 @@ import torch
 from dualmessagepassing_tpu_torch.ops import scatter_kernels as sc
 from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.unc.driver import (make_unc_optimizer,
+                                                     make_unc_supervised_step,
                                                      make_unc_train_step,
                                                      to_device)
 from dualmessagepassing_tpu_torch.unc.model import (UNCTrainModel,
@@ -420,3 +421,101 @@ def test_train_step_card_matches_cpu(cuda):
             continue        # BN-fed biases: Adam steps on rounding noise
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5,
                                    msg=k)
+
+
+def _padded_train_batch(rng, v=64, e=400, n_real=350, s=60, rels=3):
+    recv = np.sort(rng.integers(0, v, n_real))
+    senders = np.concatenate([rng.integers(0, v, n_real),
+                              np.zeros(e - n_real, np.int64)])
+    order = np.argsort(senders, kind="stable")
+    return sk.attach_csr_plan({
+        "nid": np.arange(v), "node_mask": np.ones(v, bool),
+        "senders": senders, "send_order": order,
+        "senders_sorted": senders[order],
+        "receivers": np.concatenate([recv, np.full(e - n_real, recv[-1])]),
+        "edge_type": rng.integers(0, 2 * rels, e),
+        "rev_flag": rng.random(e) < 0.5,
+        "edge_mask": np.arange(e) < n_real,
+        "edge_norm": rng.random((e, 1)).astype(np.float32),
+        "samples": np.stack([rng.integers(0, v, s),
+                             rng.integers(0, rels, s),
+                             rng.integers(0, v, s)], 1),
+        "labels": (np.arange(s) < 10).astype(np.float32),
+        "sample_mask": np.arange(s) < 50,
+    }, sender_plan=True)
+
+
+# per train step of the 2-layer model over 2R = 6 edge types: K1 forward
+# (aggregations), K1 backward (sender gathers; layer 0's input carries no
+# gradient with attributed inputs except through DMPNN's endpoint table,
+# and R-GCN's layer-0 aggregation then needs no cotangent),
+# K2 backward (the aggregations' cotangents)
+BACKBONE_STEP_LAUNCHES = {
+    ("CompGCN", False): (2, 2, 2), ("CompGCN", True): (2, 1, 2),
+    ("RGCN", False): (12, 2, 12), ("RGIN", False): (12, 2, 12),
+    ("RGCN", True): (12, 1, 6)}
+
+
+@pytest.mark.parametrize("backbone, attributed", sorted(
+    BACKBONE_STEP_LAUNCHES) + [("DMPNN", True)])
+def test_backbone_train_step_card_matches_cpu(cuda, backbone, attributed):
+    """One f32 train step of each backbone (attributed: a frozen 20-wide
+    attribute table) on the card against the CPU: the loss, every updated
+    parameter, and the kernel launches of the step."""
+    rng = np.random.default_rng(11)
+    padded = _padded_train_batch(rng)
+    attrs = rng.normal(size=(64, 20)).astype(np.float32) if attributed \
+        else None
+    model = UNCTrainModel(64, 3, 16, num_hidden_layers=2, reg_param=0.01,
+                          generator=torch.Generator().manual_seed(2),
+                          backbone=backbone, node_attri=attrs)
+    cpu = copy.deepcopy(model)
+    card = copy.deepcopy(model).to(cuda)
+    loss_cpu = make_unc_train_step(cpu, make_unc_optimizer(cpu, 1e-2, 3))(
+        to_device(padded, "cpu"))
+    sk.reset_launch_counts()
+    loss_card = make_unc_train_step(card, make_unc_optimizer(card, 1e-2, 3))(
+        to_device(padded, cuda))
+    torch.cuda.synchronize()
+    if backbone == "DMPNN":
+        want = {"segment_sum_sorted:fwd": 2, "segment_sum_sorted:bwd": 4,
+                "gather_rows_sorted:fwd": 2, "gather_rows_sorted:bwd": 2}
+    else:
+        k1f, k1b, k2b = BACKBONE_STEP_LAUNCHES[(backbone, attributed)]
+        want = {"segment_sum_sorted:fwd": k1f, "segment_sum_sorted:bwd": k1b,
+                "gather_rows_sorted:bwd": k2b}
+    assert dict(sk.LAUNCHES) == want
+    assert abs(loss_card.item() - loss_cpu.item()) <= 1e-5
+    for (k, a), b in zip(card.state_dict().items(),
+                         cpu.state_dict().values()):
+        if k.endswith(("nbias", "ebias", "fc0_bias", "running_mean")):
+            continue        # BN-fed biases: Adam steps on rounding noise
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+def test_supervised_step_card_matches_cpu(cuda, multi):
+    """One f32 supervised step (CompGCN, node_fc) on the card against
+    the CPU: the loss and every updated parameter."""
+    rng = np.random.default_rng(12)
+    padded = _padded_train_batch(rng)
+    n_lab = 20
+    mi = rng.permutation(64)[:n_lab]
+    ml = (rng.random((n_lab, 4)) < 0.4).astype(np.float32) if multi \
+        else rng.integers(0, 4, n_lab)
+    mm = np.arange(n_lab) < 15
+    model = UNCTrainModel(64, 3, 16, num_hidden_layers=2, reg_param=0.01,
+                          generator=torch.Generator().manual_seed(3),
+                          backbone="CompGCN", nlabel=4, multi=multi)
+    losses, states = [], []
+    for dev in ("cpu", cuda):
+        m = copy.deepcopy(model).to(dev)
+        step = make_unc_supervised_step(m, make_unc_optimizer(m, 1e-2, 3),
+                                        multi)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        losses.append(step(to_device(padded, dev), t(ml), t(mi), t(mm)))
+        states.append(m.state_dict())
+    assert abs(losses[1].item() - losses[0].item()) <= 1e-5
+    for k, a in states[1].items():
+        torch.testing.assert_close(a.cpu(), states[0][k], rtol=1e-4,
+                                   atol=1e-5, msg=k)

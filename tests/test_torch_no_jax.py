@@ -19,8 +19,10 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
 # fails here rather than dropping out of the walk
 REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     "native", "ops.build", "ops.segment_kernel", "ops.scatter_kernels",
-    "unc.data", "unc.model", "unc.driver", "train.checkpoint",
-    "cli.unc_train", "bench.kernel_bench")]
+    "ops.encoding", "models.compgcn", "unc.data", "unc.model",
+    "unc.driver", "unc.linear_svc", "unc.evaluate", "unc.transform",
+    "train.checkpoint", "cli.unc_train", "cli.unc_evaluate",
+    "cli.unc_transform", "bench.kernel_bench")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -463,8 +463,8 @@ def test_train_unc_matches_jax(jax_run, monkeypatch):
     pinned = iter(jax_run["pinned"])
     make_step = tdrv.make_unc_train_step
 
-    def make_pinned_step(model, optimizer, amp=False):
-        step = make_step(model, optimizer, amp)
+    def make_pinned_step(model, optimizer, amp=False, **kw):
+        step = make_step(model, optimizer, amp, **kw)
 
         def pinned_step(sub):
             loss = step(sub)
@@ -568,8 +568,11 @@ def test_cli_parses_every_reference_command_line():
 
 
 @pytest.mark.parametrize("extra, error", [
-    (["--supervised", "True"], NotImplementedError),
-    (["--model", "RGCN"], NotImplementedError),
+    # every backbone, supervised and attributed are ported; supervised
+    # training with attributed inputs has no node table to export
+    (["--supervised", "True", "--attributed", "True"], NotImplementedError),
+    (["--model", "RGCN", "--supervised", "True", "--attributed", "True"],
+     NotImplementedError),
     (["--scatter_backend", "windowed"], ValueError),
     (["--ep_devices", "2"], ValueError),
     (["--recv_bcast", "True"], ValueError),
