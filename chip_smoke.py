@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC DMPNN
-training and embedding export, and the kernel bench, with the port's
-four CUDA kernels built from this checkout.
+"""Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC training
+and embedding export, the kernel bench, and SCM subgraph counting and
+matching, with the port's four CUDA kernels built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -71,7 +71,25 @@ Phases (any failure raises and the script exits non-zero):
              lp_evaluate on a synthetic link.dat.test (LP_SEEDS seed
              nodes, one true link and LP_NEG random ones each): Macro/
              Micro-F1, AUC, MRR and seconds, each in [0, 1] — host code,
-             the port's LinearSVC (g++-built LIBLINEAR solvers).
+             the port's LinearSVC (g++-built LIBLINEAR solvers);
+ 11 SCM      the flagship DMPNN of subgraph counting and matching
+             (__graft_entry__.py:_flagship_config: pattern <= 8 V / 8 E,
+             graph <= 64 V / 256 E, 16 labels, reversed edges, hid 64, 3
+             layers, ScalarFilter, SumPredictNet, nodeedge), batches drawn
+             as __graft_entry__.py:_make_batch draws them: K3 against its
+             plain version at the train step's shapes (V = 8,192, E =
+             65,536, H = 64 and 128, f32 and bf16), timed beside its plain
+             version, one index_add_ and its bound; one bsz-128 batch's
+             pred_c/pred_v/pred_e, loss and every gradient on the card
+             against the CPU, f32 and amp bf16, with K3's launches against
+             models/scm_models.k3_launches; the train step at bsz 128 and
+             2,048 and the eval step at bsz 512 (bench.py:116,621), CUDA-
+             event and torch.profiler device ms, K3's share, pairs/s and
+             edges/s; then the user's path counted from zero:
+             generate_dataset (an ER set at the scm_er_counting sizes),
+             BucketSampler, train_epoch for SCM_LEARN["epochs"] epochs and
+             evaluate_epoch — the loss finite and falling, MAE/MNED/MEED
+             printed, K3's launches equal to the derived count.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -79,20 +97,23 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 print {"paths": {...}} before the kernels line: the K1 and K2
-launches of each of their training runs, counted from zero just before
-it and read just after.
+Phases 7-9 and 11 print {"paths": {...}} before the kernels line: the
+kernel launches of each of their training runs, counted from zero just
+before it and read just after.
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
-(K1, K2: phase 5's training and export, forward and backward; K3, K4:
-phase 6's kernel bench), its max abs error against the plain version,
+(K1, K2: phase 5's training and export, forward and backward; K3: phase
+11's SCM learning run, with the bench's as "launches_bench"; K4: phase
+6's kernel bench), its max abs error against the plain version,
 and the kernel's, its plain version's and one PyTorch call's (library:
 index_add_ or index_select) times, each as CUDA-event ms ("ms",
 "plain_ms", "library_ms") and torch.profiler device ms ("device_ms",
 ...), beside "bound_ms", the bytes it must move over 3.35 TB/s: K1 at the
 training batch's receiver plan, H = 50 ("_recv_w101", "_send_w101" for
-the other two), K2 at the path's W = 101 ("_w50"), K3 and K4 at the
-bench's largest size (and "_64x4096" device times). The last line is
+the other two), K2 at the path's W = 101 ("_w50"), K3 at the SCM train
+step's f32 H = 64 shape (the other three as "_bfloat16_h64", ...; the
+bench's largest size as "_bench"), K4 at the bench's largest size (and
+"_64x4096" device times). The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -113,7 +134,15 @@ import torch
 
 from dualmessagepassing_tpu_torch import native
 from dualmessagepassing_tpu_torch.bench import kernel_bench
+from dualmessagepassing_tpu_torch.data.dataset import GraphAdjDataset
+from dualmessagepassing_tpu_torch.data.synthetic import generate_dataset
+from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
+                                                batch_graphs, single_graph)
+from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
 from dualmessagepassing_tpu_torch.models.layers import MaskedBatchNorm
+from dualmessagepassing_tpu_torch.models.scm_models import (build_model,
+                                                            k3_launches)
+from dualmessagepassing_tpu_torch.ops import scatter as scm_ops
 from dualmessagepassing_tpu_torch.ops import scatter_kernels as sc
 from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
@@ -125,6 +154,9 @@ from dualmessagepassing_tpu_torch.unc.driver import (
     sample_supervised_batch, to_device, train_unc, train_unc_supervised)
 from dualmessagepassing_tpu_torch.unc.model import (
     UNCTrainModel, apply_unc_forward, apply_unc_supervised_forward)
+from dualmessagepassing_tpu_torch.train import scm_driver
+from dualmessagepassing_tpu_torch.train.losses import scm_loss
+from dualmessagepassing_tpu_torch.train.samplers import BucketSampler
 
 # the reference's UNC DMPNN run.sh (tests/test_reference_commands.py:154)
 N_HIDDEN, N_LAYERS, NEG, GBS = 50, 2, 5, 10000
@@ -182,6 +214,28 @@ K2_OFFSETS = ((0, 0), (1, 3), (3, 1), (0, 5))
 # per train step with N_LAYERS layers: K1 aggregation, receiver and
 # sender cotangents; K2 receiver gather, aggregation cotangent
 K1_FWD, K1_BWD, K2_FWD, K2_BWD = N_LAYERS, 2 * N_LAYERS, N_LAYERS, N_LAYERS
+
+# --- phase 11: SCM ---------------------------------------------------------
+# bench.py's default train batch, its large one, and the scm_infer batch
+# (bench.py:116,621)
+SCM_BSZ, SCM_BIG_BSZ, SCM_INFER_BSZ = 128, 2048, 512
+# real edges per pair: graph 256 and pattern 8, each with its reversed
+# copy (bench.py:770)
+SCM_EDGES_PER_PAIR = 2 * 256 + 2 * 8
+# the learning run: an ER set at the scm_er_counting sizes
+# (tests/test_regression.py:64-66), the flagship's widths and options
+SCM_LEARN = dict(n_train=512, n_dev=128, bsz=32, epochs=4, lr=1e-3)
+SCM_LOSS = dict(bp_loss="MSE", neg_slope=0.2, match_loss_w=0.1,
+                match_reg_w=0.05, rep_reg_w=1e-4)
+# SCM outputs and gradients, card vs CPU: f32 — outputs within 1e-4 of
+# each tensor's largest magnitude (cuBLAS and the CPU sum matmuls in
+# other orders, K3's atomics in no fixed order), the loss 1e-5 relative,
+# gradients phase 5's TRAIN_F32_REL / TRAIN_F32_GLOBAL; amp bf16 —
+# phase 5's rule: at most TRAIN_AMP_FACTOR times as far from the CPU's
+# f32 result as the CPU's amp result is, plus 2**-8 of the tensor's f32
+# maximum, per tensor, and TRAIN_AMP_FACTOR in L2 over all gradients;
+# the loss 1e-3 relative.
+SCM_F32_OUT_REL = 1e-4
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -1155,8 +1209,369 @@ def phase_evaluate(emb, triplets, labeled, seed) -> dict:
     return dict(nc_s=nc_s, lp_s=lp_s, **scores)
 
 
+# --- phase 11: the SCM flagship ------------------------------------------
+
+def scm_flagship_config() -> ModelConfig:
+    """__graft_entry__.py:_flagship_config (39-53), which bench.py:116
+    trains: the Complex-dataset envelope, pattern <= 8V/8E, graph <=
+    64V/256E, 16 labels, reversed edges doubling E and the edge labels;
+    hid 64, 3 layers, ScalarFilter, SumPredictNet, nodeedge."""
+    return ModelConfig(
+        max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
+        max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
+        hid_dim=64, rep_num_pattern_layers=3, rep_num_graph_layers=3,
+        pred_hid_dim=64, filter_net="ScalarFilter",
+        pred_return_weights="nodeedge")
+
+
+def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0):
+    """__graft_entry__.py:_make_batch with the port's graph builders:
+    random pattern/graph pairs with reversed edges, the same draws."""
+    rng = np.random.default_rng(seed)
+    pats, gras = [], []
+    for _ in range(bsz):
+        p = single_graph(
+            pv, rng.integers(0, pv, pe), rng.integers(0, pv, pe),
+            node_labels=rng.integers(0, nvl, pv),
+            edge_labels=rng.integers(0, nel, pe), v_max=pv, e_max=pe)
+        g = single_graph(
+            gv, rng.integers(0, gv, ge), rng.integers(0, gv, ge),
+            node_labels=rng.integers(0, nvl, gv),
+            edge_labels=rng.integers(0, nel, ge), v_max=gv, e_max=ge)
+        pats.append(add_reversed_edges(p, nel))
+        gras.append(add_reversed_edges(g, nel))
+    return batch_graphs(pats), batch_graphs(gras)
+
+
+def scm_batch(bsz, seed):
+    """A flagship batch and its targets (counts as bench.py draws them,
+    node and edge weights), on the CPU."""
+    pattern, graph = scm_make_batch(bsz, 8, 8, 64, 256, 16, 16, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    return (pattern, graph, t(rng.poisson(4.0, (bsz, 1))),
+            t(rng.poisson(1.0, (bsz, 64))), t(rng.poisson(1.0, (bsz, 512))))
+
+
+def scm_model(cfg, seed):
+    """The flagship model from the seed, every weight moved by N(0, 0.02)
+    so the zero-initialised heads carry signal; on the CPU."""
+    model = build_model(cfg, device="cpu", seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def scm_k3_shapes(dev, seed) -> dict:
+    """K3 against its plain version at the flagship train step's shapes
+    (bsz 128: V = 8,192 node rows, E = 65,536 edge rows, the batch's own
+    flat receivers), H = 64 and 128 (the aggregation and the endpoint
+    gathers' backward), f32 and bf16; each timed beside its plain version,
+    one index_add_ and its HBM bound."""
+    _, graph = scm_make_batch(SCM_BSZ, 8, 8, 64, 256, 16, 16, seed=seed)
+    v = SCM_BSZ * 64
+    flat = scm_ops.flat_index(graph.receivers, 64, graph.edge_mask).to(dev)
+    e = flat.numel()
+    n_real = int(graph.edge_mask.sum())
+    rng = np.random.default_rng(seed)
+    out = {}
+    with torch.inference_mode():
+        for h in (64, 128):
+            base = torch.from_numpy(rng.normal(size=(e, h)).astype(
+                np.float32)).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                msg = base.to(dtype)
+                abs_sum = sc.segment_sum_unsorted_plain(msg.float().abs(),
+                                                        flat, v)
+                err = check_sum(f"K3 SCM {dtype} H={h}",
+                                sc.segment_sum_unsorted(msg, flat, v),
+                                sc.segment_sum_unsorted_plain(msg, flat, v),
+                                abs_sum)
+                name = str(dtype)[6:]
+                nbytes = n_real * h * msg.element_size() + e * 8 + v * h * 4
+                res = dict(err=err, bound_ms=hbm_ms(nbytes), **timed_pair(
+                    f"{name}: K3 SCM V={v} E={e} H={h}",
+                    lambda: sc.segment_sum_unsorted(msg, flat, v),
+                    lambda: sc.segment_sum_unsorted_plain(msg, flat, v),
+                    f" (max abs err {err:.3e})"))
+                res["library_ms"], res["library_device_ms"] = \
+                    kernel_bench.time_call(lambda: torch.zeros(
+                        v, h, dtype=dtype, device=dev).index_add_(
+                            0, flat, msg), 30)
+                print(f"timing {name}: K3 SCM H={h}: bound "
+                      f"{res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB), "
+                      f"{100 * res['bound_ms'] / res['device_ms']:.1f} % of "
+                      f"it by device time; index_add_ "
+                      f"{res['library_ms']:.4f} ms event, "
+                      f"{res['library_device_ms']:.4f} ms device")
+                out[(name, h)] = res
+    return out
+
+
+def scm_loss_and_grads(model, batch, amp):
+    """Outputs (pred_c/v/e on the CPU), the loss and float32 CPU
+    gradients of one train-mode forward and backward of `model`, and the
+    K3 launches it made."""
+    pattern, graph, counts, nw, ew = batch
+    sk.reset_launch_counts()
+    out = scm_driver.apply_model(model, pattern, graph, amp=amp, train=True)
+    losses = scm_loss(out, counts, nw, ew, **SCM_LOSS)
+    losses["total"].backward()
+    launches = dict(sk.LAUNCHES)
+    preds = {k: out[k].detach().float().cpu() for k in
+             ("pred_c", "pred_v", "pred_e")}
+    grads = {k: p.grad.detach().float().cpu()
+             for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return preds, losses["total"].item(), grads, launches
+
+
+def scm_card_vs_cpu(cfg, dev, seed) -> dict:
+    """One flagship batch (bsz 128) on the card and on the CPU, f32 and
+    amp bf16: pred_c/pred_v/pred_e, the loss and every gradient; K3's
+    launches of the card's forward and backward against the derived
+    count."""
+    batch = scm_batch(SCM_BSZ, seed)
+    model = scm_model(cfg, seed)
+    card = copy.deepcopy(model).to(dev)
+    dev_batch = [x.to(dev) for x in batch]
+    res = {}
+    for amp in (False, True):
+        res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
+        res[("card", amp)] = scm_loss_and_grads(card, dev_batch, amp)
+        torch.cuda.synchronize()
+    want_launches = {"segment_sum_unsorted": k3_launches(cfg, train=True)}
+    f32_out, f32_loss, f32_grads, _ = res[("cpu", False)]
+    gmax = max(g.abs().max().item() for g in f32_grads.values())
+    worst = {}
+    for amp in (False, True):
+        (po, lc, gc, lcpu), (pd, ld, gd, lcard) = res[("cpu", amp)], \
+            res[("card", amp)]
+        name = "amp bf16" if amp else "f32"
+        check(lcpu == {} and lcard == want_launches,
+              f"SCM {name}: K3 launched {lcard} on the card, expected "
+              f"{want_launches}")
+        check(np.isfinite(ld) and abs(ld - lc) <= (1e-3 if amp else 1e-5)
+              * abs(lc), f"SCM {name}: loss card {ld} vs cpu {lc}")
+        ratio = 0.0
+        for k in list(po) + list(gc):
+            got, cpu = (pd[k], po[k]) if k in po else (gd[k], gc[k])
+            ref = f32_out[k] if k in po else f32_grads[k]
+            check(bool(torch.isfinite(got).all()), f"SCM {name}: non-finite "
+                  f"{k}")
+            scale = ref.abs().max().item()
+            if amp:
+                err = (got - ref).abs().max().item()
+                bound = (TRAIN_AMP_FACTOR * (cpu - ref).abs().max().item()
+                         + 2.0 ** -8 * scale)
+            elif k in po:
+                err = (got - cpu).abs().max().item()
+                bound = SCM_F32_OUT_REL * scale
+            else:
+                err = (got - cpu).abs().max().item()
+                bound = TRAIN_F32_REL * scale + TRAIN_F32_GLOBAL * gmax
+            check(err <= bound, f"SCM {name} {k}: card err {err:.3e} "
+                  f"exceeds {bound:.3e}")
+            ratio = max(ratio, err / bound if bound else 0.0)
+        extra = ""
+        if amp:
+            def dist(a, b):
+                return sum(((a[k] - b[k]) ** 2).sum().item()
+                           for k in a) ** 0.5
+            l2_card, l2_cpu = dist(gd, f32_grads), dist(gc, f32_grads)
+            check(l2_card <= TRAIN_AMP_FACTOR * l2_cpu,
+                  f"SCM amp gradient L2 distance {l2_card} vs cpu {l2_cpu}")
+            extra = (f"; L2 to cpu f32: card {l2_card:.3e}, cpu amp "
+                     f"{l2_cpu:.3e}")
+        worst[name] = ratio
+        print(f"scm grads {name}: bsz {SCM_BSZ}, loss card {ld:.7f} cpu "
+              f"{lc:.7f}; pred_c/pred_v/pred_e and {len(gc)} gradients "
+              f"within bound (worst at {ratio:.3f} of it){extra}; K3 "
+              f"launches {lcard}")
+    return worst
+
+
+def scm_profile(fn, calls=3):
+    """torch.profiler over `calls` calls of fn: device ms per call and
+    K3's ms per call."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = kernel_bench.device_events(prof)
+    total = kernel_bench.per_call_us(events, calls) / 1e3
+    k3 = kernel_bench.per_call_us(
+        [e for e in events if "segment_sum_unsorted" in e.key], calls) / 1e3
+    return total, k3, events
+
+
+def scm_timing(cfg, dev, seed) -> dict:
+    """The flagship train step (make_train_step: auto ~128-pair chunks)
+    at bsz 128 and 2048, f32 and amp bf16, and the eval step at bsz 512:
+    CUDA-event ms (median of 5 calls, wrapper and host work included),
+    torch.profiler device ms with K3's share, pairs/s and edges/s (real
+    graph and pattern edges); each step's K3 launches against the
+    derived count."""
+    base = scm_model(cfg, seed)
+    out = {}
+    for bsz in (SCM_BSZ, SCM_BIG_BSZ):
+        batch = [x.to(dev) for x in scm_batch(bsz, seed + bsz)]
+        chunks = scm_driver.auto_chunks(bsz)
+        for amp in (False, True):
+            name = f"train bsz {bsz} {'amp bf16' if amp else 'f32'}"
+            model = copy.deepcopy(base).to(dev)
+            step = scm_driver.make_train_step(
+                model, scm_driver.make_optimizer(model.parameters(), 1e-3),
+                return_weights="nodeedge", amp=amp)
+
+            def run():
+                return step(*batch, 0.2, 0.1, 0.05, 1e-4)
+
+            run()
+            torch.cuda.synchronize()
+            sk.reset_launch_counts()
+            losses = run()
+            torch.cuda.synchronize()
+            want = chunks * k3_launches(cfg, train=True)
+            check(dict(sk.LAUNCHES) == {"segment_sum_unsorted": want},
+                  f"SCM {name}: K3 launched {dict(sk.LAUNCHES)}, expected "
+                  f"{want} ({chunks} chunks)")
+            check(np.isfinite(losses["total"].item()), f"SCM {name}: loss")
+            ev = kernel_bench.cuda_median_ms(run, 5, warmup=0)
+            dv, k3, events = scm_profile(run)
+            out[name] = dict(event_ms=ev, device_ms=dv, k3_ms=k3,
+                             pairs_s=bsz / ev * 1e3,
+                             edges_s=bsz * SCM_EDGES_PER_PAIR / ev * 1e3,
+                             device_edges_s=bsz * SCM_EDGES_PER_PAIR / dv
+                             * 1e3, chunks=chunks)
+            print(f"scm {name}: step {ev:.3f} ms (CUDA events, median of 5"
+                  f"), {dv:.3f} ms device time (torch.profiler, 3 steps), K3"
+                  f" {k3:.3f} ms ({100 * k3 / dv:.1f} %); {chunks} chunks, "
+                  f"{want} K3 launches per step; {bsz / ev * 1e3:.0f} pairs/"
+                  f"s, {bsz * SCM_EDGES_PER_PAIR / ev * 1e6:.4g} edges/s by "
+                  f"events, {bsz * SCM_EDGES_PER_PAIR / dv * 1e6:.4g} by "
+                  f"device time")
+            for e in sorted(events, key=kernel_bench.device_us,
+                            reverse=True)[:5]:
+                ms = kernel_bench.per_call_us([e], 3) / 1e3
+                print(f"scm {name}:   {ms:8.4f} ms {100 * ms / dv:5.1f} % "
+                      f"x{-(-e.count // 3):<5d} {e.key[:80]}")
+            del model, step
+        del batch
+    pattern, graph, *_ = [x.to(dev) for x in scm_batch(SCM_INFER_BSZ,
+                                                       seed + 7)]
+    model = copy.deepcopy(base).to(dev)
+    for amp in (False, True):
+        name = f"eval bsz {SCM_INFER_BSZ} {'amp bf16' if amp else 'f32'}"
+        eval_step = scm_driver.make_eval_step(model, amp=amp)
+        eval_step(pattern, graph)
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        pred_c = eval_step(pattern, graph)[0]
+        torch.cuda.synchronize()
+        want = k3_launches(cfg, train=False)
+        check(dict(sk.LAUNCHES) == {"segment_sum_unsorted": want},
+              f"SCM {name}: K3 launched {dict(sk.LAUNCHES)}, expected {want}")
+        check(pred_c.shape == (SCM_INFER_BSZ, 1)
+              and bool(torch.isfinite(pred_c).all()), f"SCM {name}: pred_c")
+        ev = kernel_bench.cuda_median_ms(lambda: eval_step(pattern, graph),
+                                         10, warmup=0)
+        dv, k3, _ = scm_profile(lambda: eval_step(pattern, graph))
+        out[name] = dict(event_ms=ev, device_ms=dv, k3_ms=k3,
+                         samples_s=SCM_INFER_BSZ / ev * 1e3)
+        print(f"scm {name}: forward {ev:.3f} ms (CUDA events, median of 10)"
+              f", {dv:.3f} ms device time, K3 {k3:.3f} ms "
+              f"({100 * k3 / dv:.1f} %); {SCM_INFER_BSZ / ev * 1e3:.0f} "
+              f"samples/s by events, {SCM_INFER_BSZ / dv * 1e3:.0f} by device"
+              " time")
+    return out
+
+
+def scm_learning_run(dev, seed) -> dict:
+    """The user's SCM path on the card, counted from zero: generate_dataset
+    (an ER set at the scm_er_counting sizes, reversed edges added), the
+    flagship's widths and options, BucketSampler, make_train_step and
+    train_epoch for SCM_LEARN["epochs"] epochs, then make_eval_step and
+    evaluate_epoch. The losses must be finite and fall; K3's launches
+    must equal the derived count of the steps and eval forwards."""
+    t0 = time.perf_counter()
+    n_tr, n_dev = SCM_LEARN["n_train"], SCM_LEARN["n_dev"]
+    data = generate_dataset(n_tr + n_dev, seed=seed, pv=3, pe=3, gv=8,
+                            ge=16, num_vlabels=2, num_elabels=2, p_v_max=4,
+                            p_e_max=4, g_v_max=8, g_e_max=16)
+    train_ds = GraphAdjDataset(data[:n_tr]).add_reversed_edges(2, 2)
+    dev_ds = GraphAdjDataset(data[n_tr:]).add_reversed_edges(2, 2)
+    gen_s = time.perf_counter() - t0
+    cfg = scm_flagship_config().replace(
+        max_ngv=8, max_ngvl=2, max_nge=32, max_ngel=4, max_npv=4,
+        max_npvl=2, max_npe=8, max_npel=4)
+    model = build_model(cfg, device=dev, seed=seed)
+    step = scm_driver.make_train_step(
+        model, scm_driver.make_optimizer(model.parameters(),
+                                         SCM_LEARN["lr"]),
+        return_weights="nodeedge")
+    config = {"train_epochs": SCM_LEARN["epochs"], "neg_pred_slp": 0.2,
+              "match_loss_w": 0.1, "pred_return_weights": "nodeedge"}
+    bsz = SCM_LEARN["bsz"]
+    sampler = BucketSampler(train_ds.sizes(), ["g_len", "p_len"], bsz,
+                            shuffle=True, seed=seed)
+    dev_sampler = BucketSampler(dev_ds.sizes(), ["g_len", "p_len"], bsz)
+    losses = []
+    sk.reset_launch_counts()
+    t1 = time.perf_counter()
+    for epoch in range(SCM_LEARN["epochs"]):
+        sampler.set_epoch(epoch)
+        rec = scm_driver.train_epoch(step, train_ds, sampler, config, epoch)
+        losses.append(rec["total"])
+        print(f"scm learn epoch {epoch}: loss {rec['total']:.6f}, "
+              f"{len(sampler)} steps, {rec['edges_per_sec']:.4g} edges/s "
+              "(host wall clock)")
+    results = scm_driver.evaluate_epoch(scm_driver.make_eval_step(model),
+                                        dev_ds, dev_sampler, "nodeedge")
+    launches = dict(sk.LAUNCHES)
+    wall = time.perf_counter() - t1
+    steps = SCM_LEARN["epochs"] * len(sampler)
+    want = (steps * scm_driver.auto_chunks(bsz) * k3_launches(cfg, True)
+            + len(dev_sampler) * k3_launches(cfg, False))
+    check(launches == {"segment_sum_unsorted": want},
+          f"SCM learning run launched {launches}, expected K3 x {want}")
+    check(bool(np.isfinite(losses).all()) and losses[-1] < min(losses[:2]),
+          f"SCM learning run: losses {losses} not finite and falling")
+    scores = {k: results[k] for k in ("MAE", "MSE", "RMSE", "AUC", "MNED",
+                                      "MEED")}
+    check(all(np.isfinite(v) for v in scores.values()),
+          f"SCM evaluation: {scores}")
+    print(f"scm learn: {n_tr} train / {n_dev} dev ER pairs made in "
+          f"{gen_s:.2f} s ({'native' if native.available() else 'numpy'} "
+          f"subiso); {steps} steps and {len(dev_sampler)} eval batches in "
+          f"{wall:.1f} s; dev " + ", ".join(
+              f"{k} {v:.4f}" for k, v in scores.items())
+          + f"; eval forward {1e3 * results['time_avg']:.4f} ms per pair; "
+          f"K3 launches {launches}")
+    return dict(losses=losses, launches=launches, **scores)
+
+
+def phase_scm(dev, seed) -> dict:
+    """Phase 11: K3 at the SCM shapes, the flagship on the card against
+    the CPU, the step and eval timings, and the learning run."""
+    t0 = time.perf_counter()
+    cfg = scm_flagship_config()
+    out = {"k3": scm_k3_shapes(dev, seed)}
+    out["worst"] = scm_card_vs_cpu(cfg, dev, seed + 1)
+    out["timing"] = scm_timing(cfg, dev, seed + 2)
+    out["learn"] = scm_learning_run(dev, seed + 3)
+    out["step_launches"] = k3_launches(cfg, train=True)
+    print(f"scm: phase 11 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
-                 bench_launches) -> dict:
+                 bench_launches, scm) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -1205,6 +1620,28 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                 "device_ms_64x4096": small[variant],
                 "library_device_ms_64x4096": small[library]}
 
+    # K3's main path is phase 11's: its launches are the SCM learning
+    # run's, its times those at the flagship train step's f32 H = 64
+    # shape; the bench's stay beside them ("_bench")
+    k3 = k34("segment_sum_unsorted",
+             "dualmessagepassing_tpu_torch/csrc/scatter_kernels.cu",
+             "dualmessagepassing_tpu/ops/pallas_scatter.py:109",
+             "k3_segment_sum_unsorted", "plain_scatter", timed_sc["k3_err"],
+             "k3", e_big * 8)
+    keys = ("launches", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "plain_device_ms", "library_ms", "library_device_ms", "bound_ms",
+            "size")
+    k3.update({k + "_bench": k3.pop(k) for k in keys})
+    shapes = scm["k3"]
+    k3.update(launches=scm["learn"]["launches"]["segment_sum_unsorted"],
+              launches_scm_step=scm["step_launches"],
+              max_abs_err=max(t["err"] for t in shapes.values()),
+              size=f"{SCM_BSZ * 64}x{SCM_BSZ * 512}", **times(
+                  shapes[("float32", 64)]))
+    for (dtype, h), t in shapes.items():
+        if (dtype, h) != ("float32", 64):
+            k3.update(times(t, f"_{dtype}_h{h}"))
+
     return {"kernels": [
         k12("segment_sum_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:261",
@@ -1215,11 +1652,7 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
             "dualmessagepassing_tpu/ops/segment_kernel.py:572",
             timed[("float32", "K2", w)],
             {f"_w{N_HIDDEN}": timed[("float32", "K2", N_HIDDEN)]}),
-        k34("segment_sum_unsorted",
-            "dualmessagepassing_tpu_torch/csrc/scatter_kernels.cu",
-            "dualmessagepassing_tpu/ops/pallas_scatter.py:109",
-            "k3_segment_sum_unsorted", "plain_scatter", timed_sc["k3_err"],
-            "k3", e_big * 8),
+        k3,
         k34("csr_segment_sum", src,
             "dualmessagepassing_tpu/ops/pallas_scatter.py:225",
             "k4_csr_segment_sum", "plain_scatter_sorted",
@@ -1335,12 +1768,18 @@ def main() -> int:
     paths["attributed_DMPNN_step"] = attributed["launches_step"]
     paths.update({f"supervised_{k}": v["launches_run"]
                   for k, v in supervised.items()})
-    print(json.dumps({"paths": paths}))
     print(f"phases 7-10 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
+    # phase 11: the SCM flagship, its learning run counted from zero
+    scm = phase_scm(dev, args.seed + 13)
+    paths["scm_learning_run"] = scm["learn"]["launches"]
+    print(json.dumps({"paths": paths}))
+    print(f"phase 11 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
-                                  train_launches, bench_launches)))
+                                  train_launches, bench_launches, scm)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

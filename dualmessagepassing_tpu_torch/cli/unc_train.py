@@ -12,13 +12,14 @@ python -m dualmessagepassing_tpu_torch.cli.unc_train \
 Every command line of the JAX CLI parses here unchanged. Supervised
 training with attributed inputs is refused: it has no learned node table
 to export (the JAX CLI fails there with a KeyError); so is
---checkpoint_dir with --supervised True, which the JAX CLI ignores. The
-options of
-the JAX package's sharded and TPU kernel compositions (--ep_devices,
---ep_mode, --ep_partition, --scatter_backend, --endpoint_gather,
---pad_cols, --sender_windowed, --recv_bcast) have no counterpart: each
-choice among them computes the same numbers as the one composition the
-port has, so their defaults are accepted and any other value is refused.
+--checkpoint_dir with --supervised True, which the JAX CLI ignores.
+The options of the JAX package's TPU kernel compositions
+(--scatter_backend, --endpoint_gather, --pad_cols, --sender_windowed,
+--recv_bcast) pick among lowerings that compute the same numbers as the
+one composition the port has: any value is accepted and changes
+nothing, with one log line each; so is --ep_partition while
+--ep_devices is 0. The sharded modes (--ep_devices > 0, --ep_mode halo)
+are refused: the port has no multi-device UNC path yet.
 --device picks the torch device (default cuda); a machine without a GPU
 trains only when asked to with --device cpu. --gpu is accepted for the
 reference's command lines and not used.
@@ -29,12 +30,13 @@ from __future__ import annotations
 import argparse
 import os
 import time
+from typing import List
 
-# the JAX CLI's TPU-only options and the only values the port accepts
-_NO_COUNTERPART = {"ep_devices": 0, "ep_mode": "psum",
-                   "ep_partition": "degree", "scatter_backend": "xla",
-                   "endpoint_gather": "split", "pad_cols": "auto",
-                   "sender_windowed": "auto", "recv_bcast": "auto"}
+# the JAX CLI's single-device lowering options and their defaults: any
+# value computes the same numbers here (a no-op, logged)
+_SAME_NUMBERS = {"scatter_backend": "xla", "endpoint_gather": "split",
+                 "pad_cols": "auto", "sender_windowed": "auto",
+                 "recv_bcast": "auto", "ep_partition": "degree"}
 
 
 def get_args(argv=None):
@@ -75,11 +77,12 @@ def get_args(argv=None):
                    help="JAX package only; the port accepts psum")
     p.add_argument("--scatter_backend", type=str, default="xla",
                    choices=["xla", "windowed"],
-                   help="JAX package only; the port accepts xla (its "
-                        "aggregation always runs the CUDA segment-sum)")
+                   help="JAX package only; accepted and unused (the "
+                        "port's aggregation always runs its CUDA "
+                        "segment-sum)")
     p.add_argument("--ep_partition", type=str, default="degree",
                    choices=["degree", "range", "bfs"],
-                   help="JAX package only; the port accepts degree")
+                   help="JAX package only; accepted and unused")
     p.add_argument("--checkpoint_dir", type=str, default="",
                    help="save full training state (params/opt/BN/clocks/"
                         "sampling RNG) per epoch and resume from it when "
@@ -89,18 +92,19 @@ def get_args(argv=None):
                         "params and f32 loss (utils/amp)")
     p.add_argument("--endpoint_gather", type=str, default="split",
                    choices=["split", "fused"],
-                   help="JAX package only; the port accepts split")
+                   help="JAX package only; accepted and unused")
     p.add_argument("--pad_cols", type=str, default="auto",
-                   help="JAX package only; the port accepts auto")
+                   help="JAX package only; accepted and unused")
     p.add_argument("--sender_windowed", type=str, default="auto",
-                   help="JAX package only; the port accepts auto")
+                   help="JAX package only; accepted and unused")
     p.add_argument("--recv_bcast", type=str, default="auto",
-                   help="JAX package only; the port accepts auto")
+                   help="JAX package only; accepted and unused")
     return p.parse_args(argv)
 
 
-def check_supported(args) -> None:
-    """Raise on what the port does not run."""
+def check_supported(args) -> List[str]:
+    """Raise on what the port does not run; return one note per JAX
+    lowering option that was set and changes nothing here."""
     if args.supervised == "True" and args.attributed == "True":
         raise NotImplementedError(
             "--supervised True exports the learned node table, which "
@@ -109,12 +113,15 @@ def check_supported(args) -> None:
     if args.supervised == "True" and args.checkpoint_dir:
         raise ValueError("--checkpoint_dir applies to unsupervised "
                          "training only")
-    for name, accepted in _NO_COUNTERPART.items():
-        if getattr(args, name) != accepted:
-            raise ValueError(
-                f"--{name} {getattr(args, name)}: the JAX package's option "
-                f"has no counterpart in the port, which accepts only "
-                f"{accepted!r}")
+    if args.ep_devices != 0 or args.ep_mode != "psum":
+        raise ValueError(
+            f"--ep_devices {args.ep_devices} --ep_mode {args.ep_mode}: the "
+            "JAX package's sharded UNC modes have no counterpart in the "
+            "port yet (it accepts --ep_devices 0 --ep_mode psum)")
+    return [f"--{name} {getattr(args, name)}: a lowering choice of the JAX "
+            "package that computes the same numbers; the port runs its "
+            "one composition" for name, default in _SAME_NUMBERS.items()
+            if getattr(args, name) != default]
 
 
 def main(argv=None):
@@ -127,7 +134,7 @@ def main(argv=None):
     from ..unc.model import UNCTrainModel
 
     args = get_args(argv)
-    check_supported(args)
+    notes = check_supported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
@@ -137,6 +144,8 @@ def main(argv=None):
         print(time.strftime("%a, %d %b %Y %H:%M:%S +0000: ") + msg,
               flush=True)
 
+    for note in notes:
+        log(note)
     log("start loading...")
     attributed = args.attributed == "True"
     amp = args.amp.lower() in ("true", "1")

@@ -1,9 +1,74 @@
-"""Masked BatchNorm (dualmessagepassing_tpu/models/layers.py:68-124)."""
+"""Shared building blocks (dualmessagepassing_tpu/models/layers.py):
+the init-by-name Dense (21-65), MaskedBatchNorm (68-124), the update
+MLP of the GNN layers (127-150), and flax's Dropout.
+
+Parameters keep flax's names and JAX's [in, out] kernel layout (x @ W),
+so a flax tree copies across (models/scm_models.params_from_flax). Each
+parameter is float32 and is cast to the input's dtype at use, which is
+the JAX package's amp: float32 master parameters, bf16 compute.
+"""
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 from torch import nn
+
+from ..utils.act import map_activation_str_to_fn
+from ..utils.init import get_initializer
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax nn.Dropout: in train mode keep each element with probability
+    1 - rate and scale it by 1 / (1 - rate); identity otherwise. The
+    mask is drawn from `generator` (on x's device)."""
+    if not train or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+class Dense(nn.Module):
+    """x @ kernel + bias, kernel [in_dim, features] drawn by init name
+    (utils/init.get_initializer); `activation` picks only the init gain
+    and applies nothing. forward(parts=[...]) is the concat-free form:
+    concat(parts, -1) @ kernel == sum_i parts[i] @ kernel[rows of part
+    i], the kernel's rows in parts order, each part broadcasting against
+    the others (a per-graph [B, 1, h] row beside [B, L, h] streams)."""
+
+    def __init__(self, in_dim: int, features: int, use_bias: bool = True,
+                 init: str = "uniform", activation: str = "none",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(
+            get_initializer(init, activation)((in_dim, features), generator))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: Optional[torch.Tensor] = None,
+                parts: Optional[Sequence[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        if parts is None:
+            dt = x.dtype
+            y = x @ self.kernel.to(dt)
+        else:
+            dt = parts[0].dtype
+            w = self.kernel.to(dt)
+            if sum(p.shape[-1] for p in parts) != w.shape[0]:
+                raise ValueError("parts do not add up to the kernel's rows")
+            y, off = None, 0
+            for p in parts:
+                k = p.shape[-1]
+                term = p @ w[off: off + k]
+                y = term if y is None else y + term
+                off += k
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
 
 
 class MaskedBatchNorm(nn.Module):
@@ -51,3 +116,39 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
         return y * self.weight.to(dt) + self.bias.to(dt)
+
+
+class UpdateMLP(nn.Module):
+    """num_layers Dense layers fc0, fc1, ... with [BN]-act between them
+    and none after the last (the DMPLayer's nmlp/emlp, reference
+    dmpnn.py:45-60). forward takes x [..., F] and, for the BatchNorm, a
+    mask of x's leading shape."""
+
+    def __init__(self, in_dim: int, features: int, num_layers: int = 2,
+                 batch_norm: bool = False, act: str = "relu",
+                 init: str = "uniform",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_layers = num_layers
+        self.act_fn = map_activation_str_to_fn(act)
+        for i in range(num_layers):
+            self.add_module(f"fc{i}", Dense(
+                in_dim if i == 0 else features, features, init=init,
+                activation=act, generator=generator))
+            if batch_norm and i != num_layers - 1:
+                self.add_module(f"bn{i}", MaskedBatchNorm(features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"fc{i}")(x)
+            if i != self.num_layers - 1:
+                bn = getattr(self, f"bn{i}", None)
+                if bn is not None:
+                    lead = x.shape[:-1]
+                    m = (torch.ones(lead, dtype=torch.bool, device=x.device)
+                         if mask is None else mask)
+                    x = bn(x.reshape(-1, x.shape[-1]), m.reshape(-1),
+                           train).reshape(x.shape)
+                x = self.act_fn(x)
+        return x

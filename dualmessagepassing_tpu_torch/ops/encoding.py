@@ -1,7 +1,7 @@
 """Host-side integer encodings: a numpy copy of
-dualmessagepassing_tpu/ops/encoding.py:20-78 (get_enc_len, int2anybase,
-int2multihot, multihot_table), which the JAX package's __init__ keeps
-out of reach on a machine without jax. The arrays equal the JAX
+dualmessagepassing_tpu/ops/encoding.py:20-96 (get_enc_len, int2anybase,
+int2multihot, multihot_table, position_table), which the JAX package's
+__init__ keeps out of reach on a machine without jax. The arrays equal the JAX
 package's (tests/test_torch_unc_backbones.py).
 
 Reference: SubgraphCountingMatching/models/embed.py:8-101 (numba kernels).
@@ -61,3 +61,15 @@ def multihot_table(max_n: int, base: int = 2) -> np.ndarray:
     (MultihotEmbedding.__init__, embed.py:197-208)."""
     enc_len = get_enc_len(max_n - 1, base)
     return int2multihot(np.arange(max_n), enc_len, base).astype(np.float32)
+
+
+def position_table(embedding_dim: int, max_len: int = 512,
+                   scale: float = 1.0) -> np.ndarray:
+    """Frozen sinusoidal table [max_len, embedding_dim]
+    (PositionEmbedding.__init__, embed.py:211-222): inv_freq =
+    10000^(-2i/d), rows [sin(p*w) || cos(p*w)] * scale."""
+    freq_seq = np.arange(0, embedding_dim, 2.0, dtype=np.float64)
+    inv_freq = 1.0 / np.power(10000.0, freq_seq / embedding_dim)
+    sinusoid = np.outer(np.arange(0, max_len, 1.0), inv_freq)
+    return (np.concatenate([np.sin(sinusoid), np.cos(sinusoid)], axis=-1)
+            * scale).astype(np.float32)

@@ -1,0 +1,145 @@
+"""Message-passing primitives of the SCM model over a padded batch
+(dualmessagepassing_tpu/ops/scatter.py: gather_nodes 38, gather_scalars
+73, scatter_sum_edges 92, _masked_onehot 190).
+
+The JAX package writes each primitive as a one-hot einsum, a TPU idiom
+(its matrix unit does a [E, V] x [V, H] product faster than a scatter).
+Here every one of them is an index over the batch flattened to B*V rows,
+flat index b*V + idx:
+
+  gather_nodes      rows of node_feat [B, V, H] per edge -> [B, E, H]: an
+                    index_select; its backward sums the cotangent rows
+                    into the table with K3 (GatherRows);
+  scatter_sum_edges masked segment-sum of per-edge messages into node
+                    slots -> [B, V, H]: K3 (SegmentSumRows); its backward
+                    is a row gather;
+  gather_scalars    gather_nodes of a [B, V] table, one column wide;
+  bincount_batched  the degrees: K3 of the edge mask, float32 counts.
+
+K3 is csrc/scatter_kernels.cu (ops/scatter_kernels.segment_sum_unsorted):
+an unsorted segment-sum that sums float32 or bf16 rows in float32 and
+drops receivers outside [0, rows). So:
+  * pad edges (edge_mask False) get the index B*V and are dropped; their
+    messages are zeroed as well, as scatter.py:109 does, so no result
+    depends on the index a pad slot holds;
+  * a receiver outside [0, V) drops too, as the one-hot of an
+    out-of-range index is a zero row;
+  * every sum is float32 and is cast to the message's dtype after, so a
+    bf16 stream (amp) is never summed in bf16 — torch's own index_add_
+    under autocast would sum in bf16;
+  * gather indices are clamped into [0, V), as XLA's gather clamps.
+The `method` argument of the JAX functions ("onehot", "segment", "take",
+None) picks a lowering; every choice computes the same sum, so here it is
+checked and has no other effect.
+
+Dispatch: a CPU tensor takes K3's plain version (segment_sum_unsorted_
+plain); a CUDA tensor launches K3 or raises. Every launch, forward or
+backward, adds one to LAUNCHES["segment_sum_unsorted"].
+scatter_sum_flat, scatter_max_edges and segment_softmax_edges are not
+ported (they serve other model families).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .scatter_kernels import segment_sum_unsorted
+
+_METHODS = (None, "onehot", "segment", "take")
+
+
+def _check_method(method: Optional[str]) -> None:
+    if method not in _METHODS:
+        raise ValueError(f"unknown scatter method: {method}")
+
+
+def flat_index(idx: torch.Tensor, n: int,
+               valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, E] per-graph indices -> [B*E] int64 flat indices b*n + idx;
+    entries outside [0, n), or where `valid` is False, become B*n (the
+    index K3 drops)."""
+    b = idx.shape[0]
+    offs = torch.arange(b, device=idx.device)[:, None] * n
+    ok = (idx >= 0) & (idx < n)
+    if valid is not None:
+        ok = ok & valid
+    return torch.where(ok, idx + offs, b * n).reshape(-1)
+
+
+class SegmentSumRows(torch.autograd.Function):
+    """out [n_rows, H] = K3(msg [N, H]) at the flat receivers, summed in
+    float32 and cast to msg's dtype; receivers >= n_rows are dropped.
+    d msg = g[receivers], zero for the dropped rows."""
+
+    @staticmethod
+    def forward(ctx, msg, receivers, n_rows: int):
+        ctx.save_for_backward(receivers)
+        ctx.n_rows = int(n_rows)
+        return segment_sum_unsorted(msg, receivers, n_rows).to(msg.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (receivers,) = ctx.saved_tensors
+        keep = receivers < ctx.n_rows
+        rows = g.index_select(0, torch.where(keep, receivers, 0))
+        return torch.where(keep[:, None], rows, 0), None, None
+
+
+class GatherRows(torch.autograd.Function):
+    """rows [N, H] = table[idx]; d table = K3(g) at idx, summed in
+    float32 and cast to the table's dtype."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        ctx.dtype = table.dtype
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        grad = segment_sum_unsorted(g.contiguous(), idx, ctx.n_rows)
+        return grad.to(ctx.dtype), None
+
+
+def gather_nodes(node_feat: torch.Tensor, idx: torch.Tensor,
+                 method: Optional[str] = None) -> torch.Tensor:
+    """node_feat [B, V, H], idx [B, E] -> [B, E, H]."""
+    _check_method(method)
+    b, v, h = node_feat.shape
+    flat = flat_index(idx.clamp(0, v - 1), v)
+    rows = GatherRows.apply(node_feat.reshape(b * v, h), flat)
+    return rows.reshape(b, idx.shape[1], h)
+
+
+def gather_scalars(table: torch.Tensor, idx: torch.Tensor,
+                   method: Optional[str] = None) -> torch.Tensor:
+    """table [B, V], idx [B, E] -> [B, E]."""
+    return gather_nodes(table[..., None], idx, method)[..., 0]
+
+
+def scatter_sum_edges(messages: torch.Tensor, receivers: torch.Tensor,
+                      edge_mask: torch.Tensor, num_nodes: int,
+                      method: Optional[str] = None) -> torch.Tensor:
+    """messages [B, E, H], receivers [B, E], edge_mask [B, E] bool ->
+    [B, V, H] in messages' dtype (summed in float32): DGL's fn.sum over
+    a padded batch (reference dmpnn.py:92)."""
+    _check_method(method)
+    b, e, h = messages.shape
+    msg = torch.where(edge_mask[..., None], messages, 0)
+    flat = flat_index(receivers, num_nodes, edge_mask)
+    out = SegmentSumRows.apply(msg.reshape(b * e, h), flat, b * num_nodes)
+    return out.reshape(b, num_nodes, h)
+
+
+def bincount_batched(idx: torch.Tensor, mask: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """[B, E] indices + mask -> [B, n] float32 counts (K3 of the mask)."""
+    b = idx.shape[0]
+    ones = mask.float().reshape(-1, 1)
+    with torch.no_grad():
+        out = segment_sum_unsorted(ones, flat_index(idx, n, mask), b * n)
+    return out.reshape(b, n)

@@ -67,7 +67,8 @@ from torch import nn
 
 from ..constants import LEAKY_RELU_A
 from ..models.compgcn import comp_func
-from ..models.layers import MaskedBatchNorm
+from ..models.layers import Dense, MaskedBatchNorm
+from ..models.layers import dropout as _dropout
 from ..ops.encoding import get_enc_len, multihot_table
 from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
                                   gather_rows_perm)
@@ -98,20 +99,6 @@ def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
     return F.one_hot(idx, n).to(table.dtype) @ table
 
 
-def _dropout(x: torch.Tensor, rate: float, train: bool,
-             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax nn.Dropout: in train mode keep each element with probability
-    1 - rate and scale it by 1 / (1 - rate); identity otherwise. The
-    mask is drawn from `generator` (on x's device)."""
-    if not train or rate == 0.0:
-        return x
-    if rate >= 1.0:
-        return torch.zeros_like(x)
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0)
-
-
 def _out_degrees(sub: Sub) -> torch.Tensor:
     """Global out-degrees over real edges (pad_subgraph ships them as
     sub["out_deg"]; this is the in-model fallback)."""
@@ -119,22 +106,6 @@ def _out_degrees(sub: Sub) -> torch.Tensor:
     v = sub["node_mask"].shape[0]
     return torch.zeros(v, device=senders.device).index_add_(
         0, senders, sub["edge_mask"].float())
-
-
-class Dense(nn.Module):
-    """x @ kernel + bias with an [in, out] xavier-uniform kernel of the
-    given gain and a zero bias (flax nn.Dense names; gain sqrt(2) is the
-    JAX package's Dense_)."""
-
-    def __init__(self, in_dim: int, out_dim: int, generator=None,
-                 gain: float = 1.0):
-        super().__init__()
-        self.kernel = _param(xavier_uniform(gain), (in_dim, out_dim),
-                             generator)
-        self.bias = _zeros(out_dim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class UpdateMLP2(nn.Module):
@@ -464,8 +435,8 @@ class RelGraphConvFlat(nn.Module):
         self.use_bias = use_bias
         if use_bias:
             self.bias = _zeros(hidden_dim)
-        self.out_layer = (Dense(hidden_dim, hidden_dim, generator,
-                                gain=math.sqrt(2.0)) if iso_layer else None)
+        self.out_layer = (Dense(hidden_dim, hidden_dim, activation="relu",
+                                generator=generator) if iso_layer else None)
 
     def forward(self, sub: Sub, node_feat: torch.Tensor, edge_norm=None,
                 train: bool = False, generator=None) -> torch.Tensor:
@@ -555,11 +526,11 @@ class UNCTrainModel(nn.Module):
         # unc/model.py:1079-1082)
         self.w_relation = _param(xavier_uniform(math.sqrt(2.0)),
                                  (num_rels, h_dim), generator)
-        self.node_fc = (Dense(h_dim, nlabel, generator) if nlabel > 0
-                        else None)
+        self.node_fc = (Dense(h_dim, nlabel, generator=generator)
+                        if nlabel > 0 else None)
         # the edge-stream regulariser's Dense; R-GCN/R-GIN have no edge
         # stream, and the JAX package's lazy init creates none for them
-        self.edge_fc = (Dense(h_dim, h_dim, generator)
+        self.edge_fc = (Dense(h_dim, h_dim, generator=generator)
                         if backbone in ("DMPNN", "CompGCN") else None)
 
     def forward(self, sub: Sub, train: bool = False,

@@ -519,3 +519,115 @@ def test_supervised_step_card_matches_cpu(cuda, multi):
     for k, a in states[1].items():
         torch.testing.assert_close(a.cpu(), states[0][k], rtol=1e-4,
                                    atol=1e-5, msg=k)
+
+
+# --- the SCM flagship through K3 -----------------------------------------
+
+@pytest.mark.parametrize("h", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scm_functions_launch_k3_at_the_flagship_shapes(cuda, dtype, h):
+    """ops/scatter.py's scatter_sum_edges and gather_nodes at the
+    flagship's per-graph envelope (V = 64, E = 512) for B = 16 graphs, a
+    quarter of the edge slots pads holding garbage receivers: forward and
+    gradients on the card against the CPU (K3's plain version), and one K3
+    launch per forward sum and per gather backward."""
+    from dualmessagepassing_tpu_torch.ops import scatter as ops
+    rng = np.random.default_rng(15)
+    b, v, e = 16, 64, 512
+    recv = rng.integers(0, v, (b, e))
+    mask = np.arange(e)[None, :] < rng.integers(3 * e // 4, e + 1, (b, 1))
+    recv = np.where(mask, recv, rng.integers(-5, 10 ** 6, (b, e)))
+    msg = rng.normal(size=(b, e, h)).astype(np.float32)
+    table = rng.normal(size=(b, v, h)).astype(np.float32)
+    g_nodes = rng.normal(size=(b, v, h)).astype(np.float32)
+    g_rows = rng.normal(size=(b, e, h)).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        m = t(msg).to(dtype).requires_grad_()
+        tb = t(table).to(dtype).requires_grad_()
+        r, mk = t(recv), t(mask)
+        sk.reset_launch_counts()
+        agg = ops.scatter_sum_edges(m, r, mk, v)
+        rows = ops.gather_nodes(tb, r.clamp(0, v - 1))
+        torch.autograd.backward((agg, rows), (t(g_nodes).to(dtype),
+                                              t(g_rows).to(dtype)))
+        torch.cuda.synchronize()
+        res[str(dev)] = ([x.detach().cpu().float() for x in
+                          (agg, rows, m.grad, tb.grad)], dict(sk.LAUNCHES))
+    (got, launches), (want, none) = res[str(cuda)], res["cpu"]
+    assert launches == {"segment_sum_unsorted": 2} and none == {}
+    agg_abs = ops.scatter_sum_edges(torch.from_numpy(np.abs(msg)),
+                                    torch.from_numpy(recv),
+                                    torch.from_numpy(mask), v)
+    gt_abs = torch.zeros(b * v, h).index_add_(
+        0, ops.flat_index(torch.from_numpy(recv).clamp(0, v - 1), v),
+        torch.from_numpy(np.abs(g_rows)).reshape(-1, h)).reshape(b, v, h)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    for name, g, w, a in (("sum", got[0], want[0], agg_abs),
+                          ("gather backward", got[3], want[3], gt_abs)):
+        bound = 2.0 ** -20 * a + ulp * torch.maximum(g.abs(), w.abs())
+        assert bool(((g - w).abs() <= bound).all()), name
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+def test_scm_train_step_card_matches_cpu(cuda):
+    """A small flagship-shaped DMPNN (B = 8, graph 64 V / 512 E with
+    reversed edges, hid 32, 2 layers): the losses and every parameter
+    gradient on the card against the CPU (f32: 1e-4 of each tensor's
+    largest magnitude plus 1e-5 of the largest gradient), and K3's
+    launches of one train step against models/scm_models.k3_launches."""
+    from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
+                                                    batch_graphs,
+                                                    single_graph)
+    from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
+    from dualmessagepassing_tpu_torch.models.scm_models import (
+        build_model, k3_launches)
+    from dualmessagepassing_tpu_torch.train.losses import scm_loss
+    from dualmessagepassing_tpu_torch.train.scm_driver import (
+        apply_model, make_optimizer, make_train_step)
+    rng = np.random.default_rng(16)
+    recs = []
+    for v, e in ((8, 8), (64, 256)):
+        side = []
+        for _ in range(8):
+            r = single_graph(v, rng.integers(0, v, e), rng.integers(0, v, e),
+                             rng.integers(0, 16, v), rng.integers(0, 16, e))
+            side.append(add_reversed_edges(r, 16))
+        recs.append(batch_graphs(side))
+    cfg = ModelConfig(max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
+                      max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
+                      hid_dim=32, rep_num_pattern_layers=2,
+                      rep_num_graph_layers=2, pred_hid_dim=32,
+                      filter_net="ScalarFilter",
+                      pred_return_weights="nodeedge")
+    targets = [torch.from_numpy(rng.poisson(lam, shape).astype(np.float32))
+               for lam, shape in ((3.0, (8, 1)), (1.0, (8, 64)),
+                                  (1.0, (8, 512)))]
+    scal = dict(neg_slope=0.2, match_loss_w=0.1, match_reg_w=0.05,
+                rep_reg_w=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, seed=2)
+        batch = [recs[0].to(dev), recs[1].to(dev)] + [
+            x.to(dev) for x in targets]
+        losses = scm_loss(apply_model(model, *batch[:2], train=True),
+                          *batch[2:], **scal)
+        losses["total"].backward()
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        step = make_train_step(model, make_optimizer(model.parameters(),
+                                                     1e-3),
+                               return_weights="nodeedge")
+        sk.reset_launch_counts()
+        stepped = step(*batch, *scal.values())
+        torch.cuda.synchronize()
+        out[str(dev)] = (losses["total"].item(), stepped["total"].item(),
+                         grads, dict(sk.LAUNCHES))
+    (lc, sc_, gc, kc), (lg, sg, gg, kg) = out["cpu"], out[str(cuda)]
+    assert kc == {} and kg == {"segment_sum_unsorted":
+                               k3_launches(cfg, train=True)}
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(sg - sc_) <= 1e-5 * abs(sc_)
+    gmax = max(g.abs().max().item() for g in gc.values())
+    for k in gc:
+        bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
+        assert (gg[k] - gc[k]).abs().max().item() <= bound, k

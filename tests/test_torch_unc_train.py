@@ -573,22 +573,59 @@ def test_cli_parses_every_reference_command_line():
     (["--supervised", "True", "--attributed", "True"], NotImplementedError),
     (["--model", "RGCN", "--supervised", "True", "--attributed", "True"],
      NotImplementedError),
-    (["--scatter_backend", "windowed"], ValueError),
+    (["--ep_mode", "halo"], ValueError),
     (["--ep_devices", "2"], ValueError),
-    (["--recv_bcast", "True"], ValueError),
+    (["--ep_devices", "1", "--ep_partition", "bfs"], ValueError),
 ])
 def test_cli_refuses_what_has_no_counterpart(extra, error):
     with pytest.raises(error):
         tcli.check_supported(tcli.get_args(["--link", "x"] + extra))
 
 
-def test_cli_trains_on_the_cpu(tmp_path):
-    t, n, r = tiny_hin(seed=2, n=40, e=160)
+def _link_file(tmp_path, seed=2, n=40, e=160):
+    t, n, r = tiny_hin(seed=seed, n=n, e=e)
     link = tmp_path / "link.dat"
     with open(link, "w") as f:
         f.write(f"{n} {r}\n")
         for row in t:
             f.write("%d %d %d\n" % tuple(row))
+    return link, n
+
+
+def test_cli_runs_the_jax_clis_measured_best_command_line(tmp_path, capsys):
+    """The JAX CLI's recommended composition — --scatter_backend windowed
+    --amp True with the pad_cols / recv_bcast / sender plan values that
+    bench.py:238-268 measures — trains on the CPU; each lowering option
+    is a logged no-op."""
+    link, n = _link_file(tmp_path, seed=3)
+    out = tmp_path / "emb.dat"
+    tcli.main(["--link", str(link), "--output", str(out), "--n_hidden", "8",
+               "--graph_batch_size", "40", "--n_epochs", "1",
+               "--sample_depth", "2", "--sample_width", "4",
+               "--scatter_backend", "windowed", "--amp", "True",
+               "--pad_cols", "True", "--recv_bcast", "True",
+               "--sender_windowed", "True", "--endpoint_gather", "fused",
+               "--ep_partition", "bfs", "--device", "cpu"])
+    logged = capsys.readouterr().out
+    for opt in ("scatter_backend", "pad_cols", "recv_bcast",
+                "sender_windowed", "endpoint_gather", "ep_partition"):
+        assert logged.count(f"--{opt} ") == 1, opt
+    lines = out.read_text().splitlines()
+    assert len(lines) == n + 1
+    assert np.isfinite([float(x) for x in lines[1].split("\t")[1].split()]
+                       ).all()
+
+
+def test_cli_still_refuses_sharded_training():
+    with pytest.raises(ValueError, match="ep_devices 2"):
+        tcli.check_supported(tcli.get_args(
+            ["--link", "x", "--ep_devices", "2", "--scatter_backend",
+             "windowed"]))
+    assert tcli.check_supported(tcli.get_args(["--link", "x"])) == []
+
+
+def test_cli_trains_on_the_cpu(tmp_path):
+    link, n = _link_file(tmp_path)
     out = tmp_path / "emb.dat"
     tcli.main(["--link", str(link), "--output", str(out), "--n_hidden", "8",
                "--graph_batch_size", "40", "--n_epochs", "1",
