@@ -1,8 +1,18 @@
-"""Per-epoch training checkpoints of the UNC driver
-(dualmessagepassing_tpu/train/checkpoint.py and unc/driver.py:562-581,
-630-636).
+"""Training checkpoints (dualmessagepassing_tpu/train/checkpoint.py):
+the UNC driver's per-epoch state, the SCM CLI's best-epoch state and
+params-only checkpoints, and expand_params, which grows a trained SCM
+model onto a larger vocabulary.
 
-One file, checkpoint_dir/latest, written with torch.save: the model's
+SCM (save_state/restore_state, cli/scm_train.py's epoch{N}/): one file,
+epoch{N}/state.pt, written with torch.save: the model's state_dict, the
+optimizer's (SCMOptimizer or MultiSteps), the step (the LR clock) and the
+dropout generator's state. save_params/restore_params keep the
+state_dict alone (the reference's epoch{E}.pt). The JAX package writes
+orbax directories; neither package reads the other's checkpoints (the
+JAX package's weights reach the port through
+models/scm_models.params_from_flax).
+
+UNC: one file, checkpoint_dir/latest, written with torch.save: the model's
 state_dict (parameters and BatchNorm running statistics), the
 optimizer's state (Adam moments and step, the schedule's update count),
 the loop clocks (last finished epoch, the loss the early stop compares
@@ -20,7 +30,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -77,3 +87,94 @@ def restore_unc_checkpoint(path: str, model: torch.nn.Module, optimizer,
     if generator is not None and "dropout_rng" in saved:
         generator.set_state(saved["dropout_rng"].cpu())
     return json.loads(saved["clocks"])
+
+
+# -----------------------------------------------------------------------------
+# SCM: best-epoch state, params-only checkpoints, expansion
+# -----------------------------------------------------------------------------
+
+STATE_FILE, PARAMS_FILE = "state.pt", "params.pt"
+
+
+def _save(obj, path: str, name: str) -> None:
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, name)
+    tmp = f"{target}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, target)
+
+
+def save_state(path: str, model: torch.nn.Module, optimizer, step: int,
+               generator: Optional[torch.Generator] = None) -> None:
+    """The directory `path` gets state.pt: the model's state_dict
+    (parameters and BatchNorm statistics), optimizer.state_dict(), the
+    step and the dropout generator's state."""
+    state = {"model": model.state_dict(),
+             "optimizer": optimizer.state_dict(), "step": int(step)}
+    if generator is not None:
+        state["dropout_rng"] = generator.get_state()
+    _save(state, path, STATE_FILE)
+
+
+def restore_state(path: str, model: Optional[torch.nn.Module] = None,
+                  optimizer=None,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+    """Read what save_state wrote -> its dict (tensors on the CPU); the
+    model, the optimizer and the generator that are given load their
+    parts in place."""
+    saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    if model is not None:
+        model.load_state_dict(saved["model"])
+    if optimizer is not None:
+        optimizer.load_state_dict(saved["optimizer"])
+    if generator is not None and "dropout_rng" in saved:
+        generator.set_state(saved["dropout_rng"])
+    return saved
+
+
+def save_params(path: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Params-only checkpoint: the directory `path` gets params.pt."""
+    _save(dict(state_dict), path, PARAMS_FILE)
+
+
+def restore_params(path: str, model: Optional[torch.nn.Module] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The state_dict save_params wrote (on the CPU); a given model loads
+    it in place."""
+    sd = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu",
+                    weights_only=True)
+    if model is not None:
+        model.load_state_dict(sd)
+    return sd
+
+
+def expand_params(old: Mapping[str, torch.Tensor],
+                  new: Mapping[str, torch.Tensor],
+                  pre_pad: bool = True) -> Dict[str, torch.Tensor]:
+    """Copy old tensors into the tail (pre_pad) or head slices of the new
+    ones, matched by name (the JAX package's expand_params over flax
+    paths; reference expand_dimensions, utils/dl.py:157-191): a new
+    tensor with no old match keeps its fresh value; one of the old shape
+    takes the old value; a larger one is zeroed and the old values go
+    into its tail (head) slice in every dimension; ranks that differ
+    raise. The multihot encodings grow at the front (new most-
+    significant digit blocks), so old rows live at the tail."""
+    out = {}
+    for name, fresh in new.items():
+        prev = old.get(name)
+        if prev is None:
+            out[name] = fresh
+            continue
+        prev = prev.to(fresh.device, fresh.dtype)
+        if prev.shape == fresh.shape:
+            out[name] = prev.clone()
+            continue
+        if prev.dim() != fresh.dim():
+            raise ValueError(f"rank mismatch at {name}")
+        idx = tuple(slice(n - o, None) if pre_pad else slice(0, o)
+                    for o, n in zip(prev.shape, fresh.shape))
+        grown = torch.zeros_like(fresh)
+        grown[idx] = prev
+        out[name] = grown
+    return out

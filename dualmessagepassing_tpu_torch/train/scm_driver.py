@@ -114,6 +114,61 @@ class SCMOptimizer:
                 mine[k].copy_(theirs[k])
 
 
+class MultiSteps:
+    """optax.MultiSteps(inner, k) (the JAX CLI's --train_grad_steps,
+    cli/scm_train.py:194-197): each step() folds the parameters'
+    gradients into their running mean (acc + (g - acc) / (n + 1), optax's
+    Welford form); every k-th call hands the mean to the inner optimizer,
+    which applies its update and advances its own step count (the one
+    its bias corrections use), and the mean restarts. The other calls
+    leave the parameters as they are.
+
+    count is the number of calls, as the JAX TrainState's step counts
+    them: train_epoch's LR clock."""
+
+    def __init__(self, inner: SCMOptimizer, k: int):
+        if k < 1:
+            raise ValueError(f"MultiSteps needs k >= 1, got {k}")
+        self.inner = inner
+        self.k = k
+        self.params = inner.params
+        self.count = 0
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p, dtype=torch.float32)
+                    for p in self.params]
+
+    def zero_grad(self) -> None:
+        self.inner.zero_grad()
+
+    @torch.no_grad()
+    def step(self, lr_mult: float = 1.0) -> None:
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(self.acc, delta)
+        self.count += 1
+        self.mini_step += 1
+        if self.mini_step < self.k:
+            return
+        for p, a in zip(self.params, self.acc):
+            p.grad = a.clone()
+        self.inner.step(lr_mult)
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "acc": self.acc, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        for mine, theirs in zip(self.acc, state["acc"]):
+            mine.copy_(theirs)
+        self.inner.load_state_dict(state["inner"])
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    weight_decay: float = 1e-5,
                    max_grad_norm: float = 8.0) -> SCMOptimizer:
@@ -237,10 +292,11 @@ def train_epoch(train_step: Callable, dataset, sampler,
         curriculum's used_ratio (sampler.py:76-77, train.py:451-452);
       * the LR schedule advances once per yielded batch, cumulatively
         (the optimizer's update count).
-    Returns the bsz-weighted mean of each loss over the epoch and
+    Returns the bsz-weighted mean of each loss over the epoch,
     edges_per_sec (real pattern + graph edges over the epoch's wall
-    time). `writer` (anything with add_scalar) gets the reference's
-    per-step scalars after the epoch."""
+    time), pairs_per_sec and the epoch's seconds (the device
+    synchronised at its end). `writer` (anything with add_scalar) gets
+    the reference's per-step scalars after the epoch."""
     device = model_device(train_step.model)
     epoch_steps = len(sampler)
     full_epoch_steps = getattr(sampler, "full_len", epoch_steps)
@@ -315,6 +371,8 @@ def train_epoch(train_step: Callable, dataset, sampler,
                 writer.add_scalar(f"train/{name}", losses[name], s)
     out = {k: v / max(n, 1) for k, v in totals.items()}
     out["edges_per_sec"] = total_edges / dt if dt > 0 else 0.0
+    out["pairs_per_sec"] = n / dt if dt > 0 else 0.0
+    out["seconds"] = dt
     return out
 
 
