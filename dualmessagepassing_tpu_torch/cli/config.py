@@ -9,7 +9,7 @@ in a flat dict (the reference's config dict), and `process_model_config`
 size formulas) before ModelConfig construction.
 
 What the port runs is narrower than what parses: get_train_config refuses
-a --rep_net other than DMPNN (the other SCM networks are not ported) and
+--rep_net CNN, RNN and TXL (the sequence networks are not ported) and
 --dp_devices > 1 (the port has no data-parallel path), before any data is
 built. --device picks the torch device (default cuda); --gpu_id N >= 0
 picks cuda:N, and -1 the current CUDA device, never the CPU (the
@@ -193,10 +193,10 @@ def get_train_config(argv=None) -> Dict[str, Any]:
     add_data_config(parser)
     add_train_config(parser)
     args = parser.parse_args(argv)
-    if args.rep_net != "DMPNN":
-        parser.error(f"--rep_net {args.rep_net}: the port has only DMPNN "
-                     "among the SCM networks; the others come with slice "
-                     "D of the port (ROADMAP)")
+    if args.rep_net in ("CNN", "RNN", "TXL"):
+        parser.error(f"--rep_net {args.rep_net}: the port has the SCM graph "
+                     "networks; the sequence networks come with slice D2 "
+                     "of the port (ROADMAP)")
     if args.dp_devices > 1:
         parser.error(f"--dp_devices {args.dp_devices}: the port has no "
                      "data-parallel SCM path; it comes with slice E of the "

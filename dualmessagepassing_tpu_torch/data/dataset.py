@@ -11,8 +11,9 @@ subisomorphisms and cached on the record (reference dataset.py:1620-
 remove_loops (252-270), add_reversed_edges (273-327), the eigenvalue
 bounds (330-380).
 
-Only the graph collate is ported; the EdgeSeq and LRP collates
-(batchify_edgeseq, batchify_lrp) serve other model families.
+The graph collate serves the GNNs, batchify_lrp (dataset.py:257-297)
+LRP and DMPLRP; the EdgeSeq collate (batchify_edgeseq) of CNN, RNN and
+TXL is not ported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import numpy as np
 import torch
 
 from .. import graph as G
+from ..models.lrp import LRPGraphBatch
 from ..ops.spectral import largest_eigenvalue_bounds_np
+from .lrp import count_perms, record_to_lrp_perms
 from .subiso import edge_subiso_weights, node_subiso_weights
 
 # the dense collate cache is built only below this many bytes per side
@@ -188,6 +191,33 @@ class GraphAdjDataset:
 
         return ids, pattern, graph, t(counts), (t(node_w), t(edge_w))
 
+    def batchify_lrp(self, indices: Sequence[int],
+                     return_weights: str = "none", seq_len: int = 4):
+        """The LRP collate (reference LRPDataset.batchify, dataset.py:
+        1862-1905): batchify's tuple with LRPGraphBatch pattern and graph,
+        the perm tables padded to the batch's largest perm count. Each
+        record keeps its tables (under "_lrp_pattern", "_lrp_graph") and
+        enumerates them again only for a larger envelope."""
+        batch = [self.data[i] for i in indices]
+        ids, pattern, graph, counts, weights = self.batchify(
+            indices, return_weights)
+
+        def perm_rows(which):
+            key = f"_lrp_{which}"
+            p_max = max(count_perms(x[which], seq_len) for x in batch) or 1
+            rows = []
+            for x in batch:
+                cached = x.get(key)
+                if cached is None or cached["perm_node"].shape[0] < p_max:
+                    cached = record_to_lrp_perms(x[which], seq_len, p_max)
+                    x[key] = cached
+                rows.append({k: v[:p_max] for k, v in cached.items()
+                             if k != "n_perm"})
+            return rows
+
+        return (ids, lrp_batch(pattern, perm_rows("pattern")),
+                lrp_batch(graph, perm_rows("graph")), counts, weights)
+
     def _node_weights(self, x) -> np.ndarray:
         if x.get("node_weights") is None:
             x["node_weights"] = node_subiso_weights(
@@ -239,16 +269,27 @@ def _sliced(rec, v_env: int, e_env: int):
     return out
 
 
+def lrp_batch(gb: G.GraphBatch, perm_rows: List[Dict[str, np.ndarray]]):
+    """A GraphBatch lifted to an LRPGraphBatch: one record's perm tables
+    (data/lrp.record_to_lrp_perms, one envelope) per graph, stacked into
+    CPU tensors."""
+    perms = {k: G._tensor(np.stack([r[k] for r in perm_rows]))
+             for k in ("perm_node", "perm_node_mask", "perm_edge",
+                       "perm_edge_mask", "perm_owner", "perm_mask")}
+    return LRPGraphBatch(**{f: getattr(gb, f) for f in G._FIELDS}, **perms)
+
+
 class CollateView:
     """A dataset view whose batchify routes to the collate a model family
-    needs. The port has the graph collate ('graph', the GNNs); 'edgeseq'
-    and 'lrp' belong to the model families that are not ported."""
+    needs: 'graph' (the GNNs) or 'lrp' (LRP, DMPLRP); 'edgeseq' (CNN, RNN,
+    TXL) is not ported."""
 
     def __init__(self, dataset: GraphAdjDataset, kind: str = "graph",
                  lrp_seq_len: int = 4, auto_envelope: bool = False):
-        if kind != "graph":
+        if kind not in ("graph", "lrp"):
             raise NotImplementedError(
-                f"collate kind {kind!r}: only 'graph' is ported")
+                f"collate kind {kind!r}: the EdgeSeq networks come with "
+                "slice D2 of the port (ROADMAP)")
         self.dataset = dataset
         self.kind = kind
         self.lrp_seq_len = lrp_seq_len
@@ -261,6 +302,9 @@ class CollateView:
         return self.dataset.sizes()
 
     def batchify(self, indices, return_weights="none"):
+        if self.kind == "lrp":
+            return self.dataset.batchify_lrp(indices, return_weights,
+                                             self.lrp_seq_len)
         return self.dataset.batchify(indices, return_weights,
                                      auto_envelope=self.auto_envelope)
 

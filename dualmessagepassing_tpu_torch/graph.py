@@ -9,8 +9,9 @@ mark them, pad edges have senders == receivers == 0. In the JAX package
 it is a flax struct pytree; here a plain dataclass of tensors, indices
 as int64 (what torch's indexing and the K3 kernel take), masks as bool.
 Host records are numpy dicts, exactly the JAX package's (the builders
-below are copies). The EdgeSeq containers (graph.py:129-300) are not
-ported.
+below are copies). A subclass adds fields of its own (models/lrp.
+LRPGraphBatch, the perm tables); to, slice and replace keep them. The
+EdgeSeq containers (graph.py:129-300) are not ported.
 """
 
 from __future__ import annotations
@@ -64,16 +65,24 @@ class GraphBatch:
     def device(self) -> torch.device:
         return self.senders.device
 
+    def _map(self, fn) -> "GraphBatch":
+        """A batch of this class with fn applied to every tensor field, a
+        subclass's fields included (None stays None)."""
+        return dataclasses.replace(self, **{
+            f.name: fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None})
+
     def to(self, device, non_blocking: bool = False) -> "GraphBatch":
-        return GraphBatch(**{f: getattr(self, f).to(
-            device, non_blocking=non_blocking) for f in _FIELDS})
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
 
     def replace(self, **kw) -> "GraphBatch":
         return dataclasses.replace(self, **kw)
 
     def slice(self, rows: slice) -> "GraphBatch":
-        """The graphs `rows` of the batch (a microbatch)."""
-        return GraphBatch(**{f: getattr(self, f)[rows] for f in _FIELDS})
+        """The graphs `rows` of the batch (a microbatch); every field is
+        [B, ...]."""
+        return self._map(lambda t: t[rows])
 
     # degrees over the real edges, float32 counts: a segment-sum of the
     # edge mask (K3 on a CUDA tensor, ops/scatter.bincount_batched)

@@ -11,9 +11,10 @@ edge embeddings and reps, and the masks.
 
 The compute dtype is an argument of forward (float32, or bf16 for amp):
 the gates, the encoder rows and the exact counts take it, and every
-parameter is cast to it at use (models/layers.py). The node-only
-GraphAdjModel scaffold (basemodel.py:454) serves other model families
-and is not ported.
+parameter is cast to it at use (models/layers.py). GraphAdjModel
+(basemodel.py:454-550) is the node-only scaffold of R-GCN and R-GIN
+(models/rgnn.py): no edge stream, a vertex-label gate, one vertex
+predict net.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ class ModelConfig:
     field for field the JAX package's, so a config translates with
     ModelConfig(**dataclasses.asdict(jax_config)). Sizes are model-facing
     (after the reversed-edge doubling, train.py:38-65). The fields of the
-    rep nets that are not ported (CompGCN, R-GCN, R-GIN, CNN, RNN, TXL,
-    LRP) are carried and unused."""
+    rep nets that are not ported (CNN, RNN, TXL) are carried and
+    unused."""
 
     max_ngv: int
     max_ngvl: int
@@ -375,3 +376,86 @@ def _prepend(extra, rep: torch.Tensor) -> torch.Tensor:
     if not extra:
         return rep
     return torch.cat([torch.cat(extra, -1), rep], -1)
+
+
+class GraphAdjModel(nn.Module):
+    """Node-only scaffold of R-GCN and R-GIN (basemodel.py:454-550,
+    reference basemodel.py:619-962): the rep net sees the vertex stream
+    and reads the edge labels as relation types; there is no edge stream
+    and no edge head. Its embeddings have no 1/enc_len rescale
+    (BaseModel.create_emb_net, reference basemodel.py:69-91). Subclasses
+    provide make_rep_net(generator), a module called as (graph, v_emb,
+    v_gate, train, generator) -> v_rep."""
+
+    def __init__(self, cfg: ModelConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.g_enc_net = EncNet(cfg, "graph", include_el=False)
+        self.p_enc_net = (None if cfg.share_enc_net
+                          else EncNet(cfg, "pattern", include_el=False))
+        self.g_emb_net = EmbNet(cfg, "graph", include_el=False,
+                                rescale=False, generator=generator)
+        self.p_emb_net = (None if cfg.share_emb_net else EmbNet(
+            cfg, "pattern", include_el=False, rescale=False,
+            generator=generator))
+        self.g_rep_net = self.make_rep_net(generator)
+        self.p_rep_net = (None if cfg.share_rep_net
+                          else self.make_rep_net(generator))
+        self.pred_net_v = build_pred_net(
+            cfg.pred_net, cfg.rep_dims()[0], cfg.pred_hid_dim,
+            act=cfg.pred_act_func, dropout=cfg.pred_dropout,
+            return_weights="node" in cfg.pred_return_weights,
+            generator=generator)
+
+    def make_rep_net(self, generator) -> nn.Module:
+        raise NotImplementedError
+
+    def forward(self, pattern: GraphBatch, graph: GraphBatch,
+                train: bool = False, dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, Any]:
+        cfg = self.cfg
+        p_v_mask, g_v_mask = pattern.node_mask, graph.node_mask
+        p_enc_net = self.p_enc_net or self.g_enc_net
+        p_emb_net = self.p_emb_net or self.g_emb_net
+        p_rep_net = self.p_rep_net or self.g_rep_net
+
+        p_enc = p_enc_net(pattern, dtype)
+        p_v_emb, _ = p_emb_net(p_enc)
+        p_v_rep = p_rep_net(pattern, p_v_emb, p_v_mask.to(dtype)[..., None],
+                            train, generator)
+
+        g_enc = self.g_enc_net(graph, dtype)
+        g_v_emb, _ = self.g_emb_net(g_enc)
+        g_v_gate = g_v_mask.to(dtype)[..., None]
+        if cfg.filter_net == "ScalarFilter":    # the vl gate only (820-837)
+            g_v_gate = g_v_gate * scalar_filter(
+                pattern.node_label, graph.node_label,
+                pattern.node_mask).to(dtype)[..., None]
+        elif cfg.filter_net != "None":
+            raise ValueError(cfg.filter_net)
+        g_v_rep = self.g_rep_net(graph, g_v_emb, g_v_gate, train, generator)
+
+        p_add, g_add = [], []
+        if cfg.pred_with_enc:
+            p_add += [p_enc["v"], p_enc["vl"]]
+            g_add += [g_enc["v"], g_enc["vl"]]
+        if cfg.pred_with_deg:
+            p_add += [pattern.out_degrees()[..., None],
+                      pattern.in_degrees()[..., None]]
+            g_add += [graph.out_degrees()[..., None],
+                      graph.in_degrees()[..., None]]
+        p_v_out = _prepend(p_add, p_v_rep) * p_v_mask[..., None]
+        g_v_out = _prepend(g_add, g_v_rep) * g_v_mask[..., None]
+        pred_c, pred_v = self.pred_net_v(p_v_out, p_v_mask, g_v_out,
+                                         g_v_mask, train, generator)
+        return {
+            "p_v_emb": p_v_emb, "p_e_emb": None,
+            "g_v_emb": g_v_emb, "g_e_emb": None,
+            "p_v_rep": p_v_rep, "p_e_rep": None,
+            "g_v_rep": g_v_rep, "g_e_rep": None,
+            "p_v_mask": p_v_mask, "p_e_mask": None,
+            "g_v_mask": g_v_mask, "g_e_mask": None,
+            "pred_c": pred_c, "pred_v": pred_v, "pred_e": None,
+        }

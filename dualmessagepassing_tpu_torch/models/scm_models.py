@@ -3,21 +3,28 @@
 build_model), and params_from_flax, which carries a JAX model's weights
 into the port.
 
-DMPNN is the one SCM model the port has (the flagship of
-__graft_entry__.py:_flagship_config); CompGCN, R-GCN, R-GIN, LRP and the
-EdgeSeq models register in the JAX package from modules not ported yet.
+DMPNN is the flagship (__graft_entry__.py:_flagship_config); CompGCN
+(models/compgcn.py), R-GCN and R-GIN (models/rgnn.py), LRP and DMPLRP
+(models/lrp.py) are the paper's other graph networks. The EdgeSeq models
+(CNN, RNN, TXL) are not ported. Submodules are named by their flax paths
+(g_rep_net.compgcn_0.in_weight, g_rep_net.rgin_1.rel_weights.weight,
+g_rep_net.lrp_0.degnet_0.kernel, g_rep_net.dmplrp_2.dmp.nmlp.fc0.kernel,
+...), so params_from_flax needs no table of names.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Type
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from .basemodel import GraphAdjModelV2, ModelConfig
+from .compgcn import CompGCN
 from .dmpnn import DMPNNStack
+from .lrp import DMPLRP, LRP
+from .rgnn import RGCN, RGIN
 
 
 class DMPNN(GraphAdjModelV2):
@@ -42,11 +49,12 @@ class DMPNN(GraphAdjModelV2):
         )
 
 
-MODEL_REGISTRY: Dict[str, Type[GraphAdjModelV2]] = {"DMPNN": DMPNN}
+MODEL_REGISTRY: Dict[str, type] = {
+    "DMPNN": DMPNN, "CompGCN": CompGCN, "RGCN": RGCN, "RGIN": RGIN,
+    "LRP": LRP, "DMPLRP": DMPLRP}
 
 
-def build_model(cfg: ModelConfig, device="cuda",
-                seed: int = 0) -> GraphAdjModelV2:
+def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> nn.Module:
     """The model cfg.rep_net names, with random weights drawn on the CPU
     from torch.Generator(seed), on `device` (cuda by default; the CPU
     only when asked)."""
@@ -92,15 +100,43 @@ def params_from_flax(params: Mapping,
 
 def k3_launches(cfg: ModelConfig, train: bool) -> int:
     """K3 launches of one forward (train=False) or of one forward and
-    backward (train=True) of the model on a CUDA batch, derived from the
-    code: the pattern and the graph each run the rep net (shared or not,
-    rep_num_graph_layers layers), which launches K3 once for the
-    out-degrees and once per layer for the aggregation; the backward
-    launches it twice per layer, for the two endpoint gathers (a
-    rematerialised layer repeats its aggregation too); pred_with_deg adds
-    the two degree tables of each side."""
+    backward (train=True) of cfg.rep_net's model on a CUDA batch, derived
+    from the code. The pattern and the graph each run the rep net (shared
+    or not) of L = rep_num_graph_layers layers. Per side, forward:
+
+      DMPNN   1 (out-degrees) + L (aggregation)
+      CompGCN L (aggregation) + the degree tables edge_norm reads (in,
+              out: 1; both: 2)
+      RGCN    L (relation fold) + the degree tables edge_norm reads
+      RGIN    L (relation fold)
+      LRP     L (pool sum) + 1 (pool counts) + 1 (in-degrees)
+      DMPLRP  2L (aggregation, pool sum) + 1 (pool counts) + 1
+              (out-degrees)
+
+    backward: DMPNN 2L (the two endpoint gathers), CompGCN, RGCN, RGIN L
+    (the sender gather), LRP L (the cell gather), DMPLRP 3L; a
+    rematerialised layer (rep_remat: DMPNN, CompGCN, RGCN, RGIN) repeats
+    its forward launches but the degrees'. pred_with_deg adds the two
+    degree tables of each side."""
     layers = cfg.rep_num_graph_layers
-    fwd = 2 * (1 + layers) + (4 if cfg.pred_with_deg else 0)
+    net = cfg.rep_net
+    n_deg = {"none": 0, "in": 1, "out": 1, "both": 2}
+    if net == "DMPNN":
+        fwd, bwd, remat = 1 + layers, 2 * layers, layers
+    elif net == "CompGCN":
+        fwd = layers + n_deg[cfg.rep_compgcn_edge_norm]
+        bwd, remat = layers, layers
+    elif net in ("RGCN", "RGIN"):
+        fwd = layers + (n_deg[cfg.rep_rgcn_edge_norm] if net == "RGCN"
+                        else 0)
+        bwd, remat = layers, layers
+    elif net == "LRP":
+        fwd, bwd, remat = layers + 2, layers, 0
+    elif net == "DMPLRP":
+        fwd, bwd, remat = 2 * layers + 2, 3 * layers, 0
+    else:
+        raise ValueError(f"unknown or unported rep_net '{net}'")
+    fwd = 2 * fwd + (4 if cfg.pred_with_deg else 0)
     if not train:
         return fwd
-    return fwd + 2 * (2 * layers + (layers if cfg.rep_remat else 0))
+    return fwd + 2 * (bwd + (remat if cfg.rep_remat else 0))

@@ -9,7 +9,8 @@ flat index b*V + idx:
 
   gather_nodes      rows of node_feat [B, V, H] per edge -> [B, E, H]: an
                     index_select; its backward sums the cotangent rows
-                    into the table with K3 (GatherRows);
+                    into the table with K3 (GatherRows); with valid=, the
+                    rows it marks False are zero and drop from the sum;
   scatter_sum_edges masked segment-sum of per-edge messages into node
                     slots -> [B, V, H]: K3 (SegmentSumRows); its backward
                     is a row gather;
@@ -89,29 +90,40 @@ class SegmentSumRows(torch.autograd.Function):
 
 class GatherRows(torch.autograd.Function):
     """rows [N, H] = table[idx]; d table = K3(g) at idx, summed in
-    float32 and cast to the table's dtype."""
+    float32 and cast to the table's dtype. masked=True lets idx hold the
+    index table.shape[0], which gives a zero row and is dropped from the
+    backward's sum."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, masked: bool = False):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
         ctx.dtype = table.dtype
-        return table.index_select(0, idx)
+        if not masked:
+            return table.index_select(0, idx)
+        # one pass: the dropped index reads an appended zero row
+        return torch.cat([table, table.new_zeros(1, table.shape[1])]
+                         ).index_select(0, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         grad = segment_sum_unsorted(g.contiguous(), idx, ctx.n_rows)
-        return grad.to(ctx.dtype), None
+        return grad.to(ctx.dtype), None, None
 
 
 def gather_nodes(node_feat: torch.Tensor, idx: torch.Tensor,
-                 method: Optional[str] = None) -> torch.Tensor:
-    """node_feat [B, V, H], idx [B, E] -> [B, E, H]."""
+                 method: Optional[str] = None,
+                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """node_feat [B, V, H], idx [B, E] -> [B, E, H]. Where `valid` [B, E]
+    is False the row is zero and takes no gradient (the JAX package's
+    gather times the mask, models/lrp.py:62-69), as pad edges drop from
+    scatter_sum_edges."""
     _check_method(method)
     b, v, h = node_feat.shape
-    flat = flat_index(idx.clamp(0, v - 1), v)
-    rows = GatherRows.apply(node_feat.reshape(b * v, h), flat)
+    flat = flat_index(idx.clamp(0, v - 1), v, valid)
+    rows = GatherRows.apply(node_feat.reshape(b * v, h), flat,
+                            valid is not None)
     return rows.reshape(b, idx.shape[1], h)
 
 

@@ -631,3 +631,113 @@ def test_scm_train_step_card_matches_cpu(cuda):
     for k in gc:
         bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
         assert (gg[k] - gc[k]).abs().max().item() <= bound, k
+
+
+# --- the SCM graph networks through K3 ------------------------------------
+
+def graph_network_k3_calls(rng, b):
+    """K3's two new call shapes at the flagship envelope (V = 64, E = 512
+    with reversed edges, R = 32 edge labels): the R-GCN/R-GIN relation
+    fold, E rows into B*V*R rows at (b*V + receiver)*R + label, a quarter
+    of the slots pads; the LRP pool, B*P perm rows into B*V rows (P =
+    4,096 perms a graph, their owners drawn by out-degree)."""
+    from dualmessagepassing_tpu_torch.ops import scatter as ops
+    v, e, r, p = 64, 512, 32, 4096
+    recv = torch.from_numpy(rng.integers(0, v, (b, e)))
+    label = torch.from_numpy(rng.integers(0, r + 4, (b, e)))
+    mask = torch.from_numpy(np.arange(e)[None, :] < rng.integers(
+        3 * e // 4, e + 1, (b, 1)))
+    ok = mask & (label < r)
+    fold = ops.flat_index(recv * r + label, v * r, ok)
+    owner = torch.from_numpy(np.sort(rng.integers(0, v, (b, p)), 1))
+    pmask = torch.from_numpy(np.arange(p)[None, :] < rng.integers(
+        p // 2, p + 1, (b, 1)))
+    pool = ops.flat_index(owner, v, pmask)
+    return {"fold": (fold, b * v * r), "pool": (pool, b * v)}
+
+
+@pytest.mark.parametrize("call", ["fold", "pool"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_at_the_graph_networks_shapes(cuda, dtype, call):
+    """K3 against its plain version at bsz 128 (the relation fold: 65,536
+    rows into 262,144; the LRP pool: 524,288 rows into 8,192), H = 64,
+    within 2**-20 of each row's absolute sum."""
+    rng = np.random.default_rng(17)
+    idx, rows = graph_network_k3_calls(rng, 128)[call]
+    msg = torch.from_numpy(rng.normal(size=(idx.numel(), 64)).astype(
+        np.float32)).to(cuda, dtype)
+    idx = idx.to(cuda)
+    sk.reset_launch_counts()
+    with torch.inference_mode():
+        got = sc.segment_sum_unsorted(msg, idx, rows)
+        want = sc.segment_sum_unsorted_plain(msg, idx, rows)
+        abs_sum = sc.segment_sum_unsorted_plain(msg.float().abs(), idx, rows)
+    torch.cuda.synchronize()
+    assert dict(sk.LAUNCHES) == {"segment_sum_unsorted": 1}
+    assert within_abs_sum(got, want, abs_sum)
+
+
+@pytest.mark.parametrize("net", ["CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"])
+def test_graph_network_train_step_card_matches_cpu(cuda, net):
+    """Each SCM graph network at the flagship's width on a small batch (B
+    = 4, graph 64 V / 256 E with reversed edges, 3 + 3 layers): the loss
+    and every parameter gradient on the card against the CPU (f32: 1e-4
+    of each tensor's largest magnitude plus 1e-5 of the largest
+    gradient), K3's launches of the forward and backward against
+    models/scm_models.k3_launches."""
+    from dualmessagepassing_tpu_torch.data.dataset import lrp_batch
+    from dualmessagepassing_tpu_torch.data.lrp import (count_perms,
+                                                       record_to_lrp_perms)
+    from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
+                                                    batch_graphs,
+                                                    single_graph)
+    from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
+    from dualmessagepassing_tpu_torch.models.scm_models import (
+        build_model, k3_launches)
+    from dualmessagepassing_tpu_torch.train.losses import scm_loss
+    from dualmessagepassing_tpu_torch.train.scm_driver import apply_model
+    rng = np.random.default_rng(18)
+    sides = []
+    for v, e in ((8, 8), (64, 256)):
+        recs = [add_reversed_edges(single_graph(
+            v, rng.integers(0, v, e), rng.integers(0, v, e),
+            rng.integers(0, 16, v), rng.integers(0, 16, e)), 16)
+            for _ in range(4)]
+        gb = batch_graphs(recs)
+        if net in ("LRP", "DMPLRP"):
+            p_max = max(count_perms(r) for r in recs)
+            gb = lrp_batch(gb, [{k: a for k, a in record_to_lrp_perms(
+                r, 4, p_max).items() if k != "n_perm"} for r in recs])
+        sides.append(gb)
+    cfg = ModelConfig(max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
+                      max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
+                      rep_net=net, filter_net="ScalarFilter",
+                      pred_return_weights="nodeedge")
+    targets = [torch.from_numpy(rng.poisson(lam, shape).astype(np.float32))
+               for lam, shape in ((3.0, (4, 1)), (1.0, (4, 64)),
+                                  (1.0, (4, 512)))]
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, seed=2)
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(3)
+            for p in model.parameters():
+                p.add_((0.02 * torch.randn(p.shape, generator=gen)).to(dev))
+        batch = [s.to(dev) for s in sides] + [x.to(dev) for x in targets]
+        sk.reset_launch_counts()
+        losses = scm_loss(apply_model(model, *batch[:2], train=True),
+                          *batch[2:], neg_slope=0.2, match_loss_w=0.1,
+                          match_reg_w=0.05, rep_reg_w=1e-3)
+        losses["total"].backward()
+        torch.cuda.synchronize()
+        out[str(dev)] = (losses["total"].item(), {
+            k: p.grad.cpu() for k, p in model.named_parameters()},
+            dict(sk.LAUNCHES))
+    (lc, gc, kc), (lg, gg, kg) = out["cpu"], out[str(cuda)]
+    assert kc == {} and kg == {"segment_sum_unsorted":
+                               k3_launches(cfg, train=True)}
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    gmax = max(g.abs().max().item() for g in gc.values())
+    for k in gc:
+        bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
+        assert (gg[k] - gc[k]).abs().max().item() <= bound, k

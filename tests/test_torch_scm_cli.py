@@ -128,11 +128,15 @@ def test_config_defaults_equal_jax():
 
 
 def test_refused_at_parse_time(capsys):
-    """Another SCM network and data parallelism are refused before any
-    data is built, naming the slice that brings them."""
-    with pytest.raises(SystemExit):
-        tcfg.get_train_config(["--rep_net", "RGCN"])
-    assert "slice D" in capsys.readouterr().err
+    """The sequence networks and data parallelism are refused before any
+    data is built, naming the slice that brings them; the graph networks
+    parse."""
+    for net in ("CNN", "RNN", "TXL"):
+        with pytest.raises(SystemExit):
+            tcfg.get_train_config(["--rep_net", net])
+        assert "slice D2" in capsys.readouterr().err
+    for net in ("DMPNN", "CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"):
+        assert tcfg.get_train_config(["--rep_net", net])["rep_net"] == net
     with pytest.raises(SystemExit):
         ttrain.main(TINY + ["--dp_devices", "2"])
     assert "slice E" in capsys.readouterr().err
@@ -392,6 +396,21 @@ def test_cli_training_follows_the_jax_cli(tmp_path, monkeypatch):
     and dev/test metrics agree to 1e-4 relative (the same arithmetic in
     another summation order). The matching losses are on, so train batches
     that carried other weights than the JAX CLI's (none) would show."""
+    follow_the_jax_cli(tmp_path, monkeypatch, [])
+
+
+@pytest.mark.parametrize("extra", [
+    ["--rep_net", "RGCN"],
+    # the JAX step compiles anew for each batch's perm envelope: 24 pairs
+    ["--rep_net", "LRP", "--synthetic_pairs", "24"]], ids=["RGCN", "LRP"])
+def test_cli_training_follows_the_jax_cli_for_other_nets(tmp_path,
+                                                         monkeypatch, extra):
+    """test_cli_training_follows_the_jax_cli for R-GCN (the node-only
+    scaffold, no edge head) and LRP (the LRP collate)."""
+    follow_the_jax_cli(tmp_path, monkeypatch, extra)
+
+
+def follow_the_jax_cli(tmp_path, monkeypatch, extra):
     import re
 
     import dualmessagepassing_tpu.train as jtrain_pkg
@@ -414,7 +433,7 @@ def test_cli_training_follows_the_jax_cli(tmp_path, monkeypatch):
 
     monkeypatch.setattr(ttrain, "build_scm_model", from_jax_init)
     argv = TINY + VOCAB2 + ["--train_epochs", "2", "--synthetic_pairs",
-                            "48", "--max_ngv", "8", "--max_nge", "16"]
+                            "48", "--max_ngv", "8", "--max_nge", "16"] + extra
     dj = jtrain.main([a for a in argv if a not in ("--device", "cpu")]
                      + ["--save_model_dir", str(tmp_path / "j")])
     dt = ttrain.main(argv + ["--save_model_dir", str(tmp_path / "t")])
@@ -481,3 +500,28 @@ def test_cli_train_finetune_dual_evaluate(tmp_path):
     logged = json.load(open(os.path.join(d1, f"dev_results{epoch}.json")))
     for k in ("MAE", "MSE", "RMSE", "MNED", "MEED"):
         assert out["dev"][k] == logged[k], k
+
+
+@pytest.mark.parametrize("net", ["CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"])
+def test_cli_train_finetune_evaluate_other_nets(tmp_path, net):
+    """Each SCM graph network through the CLIs on --device cpu: train,
+    finetune onto a larger vocabulary (expand_params), then scm_evaluate
+    of the first run, whose best-epoch dev metrics equal the training
+    log's (the same data, checkpoint and CPU arithmetic)."""
+    base = TINY + ["--rep_net", net, "--train_epochs", "1"]
+    d1 = ttrain.main(base + VOCAB2 + ["--save_model_dir",
+                                      str(tmp_path / "a")])
+    assert os.path.basename(d1).startswith(f"{net}_SumPredictNet_")
+    d2 = ttrain.main(base + ["--max_npvl", "5", "--max_npel", "5",
+                             "--max_ngvl", "5", "--max_ngel", "5",
+                             "--load_model_dir", d1,
+                             "--save_model_dir", str(tmp_path / "b")])
+    assert "finetuning from" in open(os.path.join(d2, "log.txt")).read()
+    for d in (d1, d2):
+        res = json.load(open(os.path.join(d, "dev_results0.json")))
+        assert all(np.isfinite(res[k]) for k in ("MAE", "MSE", "MNED"))
+    out = teval.main(["--load_model_dir", d1, "--device", "cpu"])
+    logged = json.load(open(os.path.join(d1, "dev_results0.json")))
+    for k in ("MAE", "MSE", "RMSE", "MNED", "MEED"):
+        assert out["dev"][k] == pytest.approx(logged[k], rel=1e-6,
+                                              nan_ok=True), k

@@ -144,7 +144,7 @@ def test_params_from_flax_consumes_every_leaf(case):
     for k, v in m.state_dict().items():
         assert v.shape == sd[k].shape, k
     with pytest.raises(ValueError):
-        sm.build_model(case["cfg"].replace(rep_net="CompGCN"), device="cpu")
+        sm.build_model(case["cfg"].replace(rep_net="CNN"), device="cpu")
 
 
 @pytest.mark.parametrize("train", [False, True])
