@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC training
 and embedding export, the kernel bench, and SCM subgraph counting and
-matching with DMPNN and the other graph networks, with the port's four
-CUDA kernels built from this checkout.
+matching with DMPNN, the other graph networks and the sequence networks,
+with the port's four CUDA kernels built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -131,7 +131,21 @@ Phases (any failure raises and the script exits non-zero):
              --rep_net for one epoch on phase 12's data, then
              cli/scm_evaluate and a finetune onto a 2-label vertex
              vocabulary, K3's launches counted from zero against the
-             derived count.
+             derived count;
+ 15 SCM seq  the sequence networks of the paper's SCM tables, CNN (k 2:
+             the graph's 512 tuples become 518), RNN (LSTM) and TXL
+             (seg_len 64, mem_len 64, 4 heads: 8 segments), at the
+             flagship's configuration with the rep net swapped: per
+             network a bsz-16 batch on the card against the CPU (phase
+             14's checks; CNN's edge-weight targets refined to 518), the
+             train step at bsz 128 and the eval forward at 512 (events,
+             device ms, peak memory), one train step with pred_with_deg
+             (K3's 4 degree tables per chunk against k3_launches, the
+             only K3 launches of these networks), the reference's ER
+             command line with its --rep_net for one epoch on phase 12's
+             data, cli/scm_evaluate and a finetune onto a 2-label vertex
+             vocabulary (no K3 launch derived, none made); and a
+             bidirectional GRU at the same size, card against CPU once.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -139,7 +153,7 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 and 11-14 print {"paths": {...}} before the kernels line: the
+Phases 7-9 and 11-15 print {"paths": {...}} before the kernels line: the
 kernel launches of each of their training runs, counted from zero just
 before it and read just after.
 
@@ -155,7 +169,8 @@ training batch's receiver plan, H = 50 ("_recv_w101", "_send_w101" for
 the other two), K2 at the path's W = 101 ("_w50"), K3 at the SCM train
 step's f32 H = 64 shape (the other three as "_bfloat16_h64", ...; the
 bench's largest size as "_bench"; phase 14's relation fold and LRP pool
-as "_rel_fold", "_lrp_pool" and their "_bfloat16" twins), K4 at the
+as "_rel_fold", "_lrp_pool" and their "_bfloat16" twins; phase 15's
+degree steps as "launches_scm_seq_deg_step"), K4 at the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
 The last line is
@@ -190,7 +205,9 @@ from dualmessagepassing_tpu_torch.data.synthetic import generate_dataset
 from dualmessagepassing_tpu_torch.gates import scm_convergence as scm_gate
 from dualmessagepassing_tpu_torch.gates import unc_convergence as unc_gate
 from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
-                                                batch_graphs, single_graph)
+                                                batch_edgeseqs, batch_graphs,
+                                                record_to_edgeseq,
+                                                single_graph)
 from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
 from dualmessagepassing_tpu_torch.models.layers import MaskedBatchNorm
 from dualmessagepassing_tpu_torch.models.scm_models import (build_model,
@@ -342,6 +359,15 @@ LRP_NETS = ("LRP", "DMPLRP")
 # part; the train step is timed at bsz 128, the eval forward at 512, as
 # phase 11's
 SCM_NET_CMP_BSZ = 16
+
+# --- phase 15: the SCM sequence networks -----------------------------------
+# the flagship's configuration with the rep net swapped; TXL at seg_len
+# 64, mem_len 64 and 4 heads (the defaults, stated); the networks' K3
+# launches are the degree tables of pred_with_deg only
+SEQ_NETS = {"CNN": {}, "RNN": dict(rep_rnn_type="LSTM"),
+            "TXL": dict(rep_txl_seg_len=64, rep_txl_mem_len=64,
+                        rep_txl_num_heads=4)}
+SEQ_GRU = dict(rep_net="RNN", rep_rnn_type="GRU", rep_rnn_bidirectional=True)
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -1339,11 +1365,13 @@ def scm_flagship_config() -> ModelConfig:
         pred_return_weights="nodeedge")
 
 
-def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, lrp_seq_len=0):
+def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, lrp_seq_len=0,
+                   edgeseq=False):
     """__graft_entry__.py:_make_batch with the port's graph builders:
     random pattern/graph pairs with reversed edges, the same draws; with
     lrp_seq_len > 0, LRP batches (each record's perm tables at the
-    batch's largest perm count, data/dataset.batchify_lrp's)."""
+    batch's largest perm count, data/dataset.batchify_lrp's); with
+    edgeseq, EdgeSeq batches (data/dataset.batchify_edgeseq's)."""
     rng = np.random.default_rng(seed)
     pats, gras = [], []
     for _ in range(bsz):
@@ -1357,6 +1385,9 @@ def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, lrp_seq_len=0):
             edge_labels=rng.integers(0, nel, ge), v_max=gv, e_max=ge)
         pats.append(add_reversed_edges(p, nel))
         gras.append(add_reversed_edges(g, nel))
+    if edgeseq:
+        return tuple(batch_edgeseqs([record_to_edgeseq(r) for r in recs])
+                     for recs in (pats, gras))
     if not lrp_seq_len:
         return batch_graphs(pats), batch_graphs(gras)
 
@@ -1371,12 +1402,13 @@ def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, lrp_seq_len=0):
 
 def scm_batch(bsz, seed, cfg=None):
     """A flagship batch and its targets (counts as bench.py draws them,
-    node and edge weights), on the CPU; LRP batches where cfg's rep_net
-    needs them."""
-    lrp = cfg.lrp_seq_len if cfg is not None and cfg.rep_net in LRP_NETS \
-        else 0
+    node and edge weights), on the CPU; LRP or EdgeSeq batches where
+    cfg's rep_net needs them."""
+    net = cfg.rep_net if cfg is not None else None
+    lrp = cfg.lrp_seq_len if net in LRP_NETS else 0
     pattern, graph = scm_make_batch(bsz, 8, 8, 64, 256, 16, 16, seed=seed,
-                                    lrp_seq_len=lrp)
+                                    lrp_seq_len=lrp,
+                                    edgeseq=net in SEQ_NETS)
     rng = np.random.default_rng(seed + 1)
     t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
     return (pattern, graph, t(rng.poisson(4.0, (bsz, 1))),
@@ -1448,11 +1480,19 @@ def k3_timed(label, flat, rows, h, dtype, dev, rng) -> dict:
     return res
 
 
+def k3_dict(n: int) -> dict:
+    """The launch counts of n K3 launches (no entry for none)."""
+    return {"segment_sum_unsorted": n} if n else {}
+
+
 def scm_loss_and_grads(model, batch, amp):
     """Outputs (pred_c/v/e on the CPU), the loss and float32 CPU
     gradients of one train-mode forward and backward of `model`, and the
     K3 launches it made."""
     pattern, graph, counts, nw, ew = batch
+    # the edge targets at the predictions' length (CNN pools), as the
+    # train step refines them
+    ew = scm_driver.refine_weights(model, "edge", ew)
     sk.reset_launch_counts()
     out = scm_driver.apply_model(model, pattern, graph, amp=amp, train=True)
     losses = scm_loss(out, counts, nw, ew, **SCM_LOSS)
@@ -1486,7 +1526,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ) -> dict:
         res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
         res[("card", amp)] = scm_loss_and_grads(card, dev_batch, amp)
         torch.cuda.synchronize()
-    want_launches = {"segment_sum_unsorted": k3_launches(cfg, train=True)}
+    want_launches = k3_dict(k3_launches(cfg, train=True))
     f32_out, f32_loss, f32_grads, _ = res[("cpu", False)]
     gmax = max(g.abs().max().item() for g in f32_grads.values())
     worst = {}
@@ -1599,7 +1639,7 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
             want = chunks * k3_launches(cfg, train=True)
-            check(dict(sk.LAUNCHES) == {"segment_sum_unsorted": want},
+            check(dict(sk.LAUNCHES) == k3_dict(want),
                   f"SCM {name}: K3 launched {dict(sk.LAUNCHES)}, expected "
                   f"{want} ({chunks} chunks)")
             check(np.isfinite(losses["total"].item()), f"SCM {name}: loss")
@@ -1636,7 +1676,7 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
         pred_c = eval_step(pattern, graph)[0]
         torch.cuda.synchronize()
         want = k3_launches(cfg, train=False)
-        check(dict(sk.LAUNCHES) == {"segment_sum_unsorted": want},
+        check(dict(sk.LAUNCHES) == k3_dict(want),
               f"SCM {name}: K3 launched {dict(sk.LAUNCHES)}, expected {want}")
         check(pred_c.shape == (eval_bsz, 1)
               and bool(torch.isfinite(pred_c).all()), f"SCM {name}: pred_c")
@@ -1782,7 +1822,7 @@ def scm_cli_run(label: str, argv, root: str) -> dict:
                                       "state.pt")),
           f"scm cli {label}: epoch{epoch}/ not written")
     want = scm_cli_expected_k3(run_dir)
-    check(launches == {"segment_sum_unsorted": want},
+    check(launches == k3_dict(want),
           f"scm cli {label}: launched {launches}, expected K3 x {want}")
     log = open(os.path.join(run_dir, "log.txt")).read()
     thr = [tuple(float(x) for x in m) for m in re.findall(
@@ -1791,8 +1831,11 @@ def scm_cli_run(label: str, argv, root: str) -> dict:
     check(len(thr) == epochs, f"scm cli {label}: {len(thr)} epoch lines")
     dev = [json.load(open(os.path.join(run_dir, f"dev_results{e}.json")))
            for e in range(epochs)]
+    # the sequence networks predict no node weights: their MNED is NaN
+    scores = ("MAE", "MSE") + (() if config["rep_net"] in SEQ_NETS
+                               else ("MNED",))
     for e, r in enumerate(dev):
-        check(all(np.isfinite(r[k]) for k in ("MAE", "MSE", "MNED")),
+        check(all(np.isfinite(r[k]) for k in scores),
               f"scm cli {label}: dev epoch {e} {r['MAE']}")
     eval_pps = [len(r["counts"]) / r["time_total"] for r in dev]
     print(f"scm cli {label}: {wall:.1f} s in all, best dev epoch {epoch}; "
@@ -1845,7 +1888,7 @@ def scm_cli_evaluate(label: str, first: dict) -> dict:
     wall = time.perf_counter() - t1
     launches = dict(sk.LAUNCHES)
     want = scm_cli_expected_k3(first["dir"], evaluate=True)
-    check(launches == {"segment_sum_unsorted": want},
+    check(launches == k3_dict(want),
           f"scm_evaluate {label}launched {launches}, expected K3 x {want}")
     check(sum(f.startswith("eval_") and f.endswith(".json")
               for f in os.listdir(first["dir"])) == 3,
@@ -2010,16 +2053,7 @@ def phase_scm_nets(dev, seed, data_dir) -> tuple:
         worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
                             train_bszs=(SCM_BSZ,))
-        run = scm_cli_run(net, cli + ["--rep_net", net], root)
-        paths[f"scm_cli_{net}"] = run["launches"]
-        paths[f"scm_cli_{net}_evaluate"] = scm_cli_evaluate(f"{net} ", run)
-        # the finetune of phase 12: onto a 2-label vertex vocabulary
-        tune = scm_cli_run(f"{net}_finetune", cli[:-2] + [
-            "--rep_net", net, "--max_ngvl", "2", "--max_npvl", "2",
-            "--load_model_dir", run["dir"]], root)
-        check("finetuning from" in open(os.path.join(
-            tune["dir"], "log.txt")).read(), f"{net} finetune did not load")
-        paths[f"scm_cli_{net}_finetune"] = tune["launches"]
+        paths.update(scm_net_cli(net, cli, root))
         out[net] = dict(worst=worst, timing=timing,
                         step_launches=k3_launches(cfg, train=True),
                         eval_launches=k3_launches(cfg, train=False))
@@ -2030,8 +2064,86 @@ def phase_scm_nets(dev, seed, data_dir) -> tuple:
     return out, paths
 
 
+def scm_net_cli(net: str, cli, root: str, extra=()) -> dict:
+    """The ER command line `cli` with --rep_net net for one epoch, then
+    cli/scm_evaluate of it and, as phase 12, a finetune of it onto a
+    2-label vertex vocabulary; K3's launches counted from zero around
+    each command -> their paths."""
+    paths = {}
+    run = scm_cli_run(net, cli + ["--rep_net", net, *extra], root)
+    paths[f"scm_cli_{net}"] = run["launches"]
+    paths[f"scm_cli_{net}_evaluate"] = scm_cli_evaluate(f"{net} ", run)
+    tune = scm_cli_run(f"{net}_finetune", cli[:-2] + [
+        "--rep_net", net, *extra, "--max_ngvl", "2", "--max_npvl", "2",
+        "--load_model_dir", run["dir"]], root)
+    check("finetuning from" in open(os.path.join(
+        tune["dir"], "log.txt")).read(), f"{net} finetune did not load")
+    paths[f"scm_cli_{net}_finetune"] = tune["launches"]
+    return paths
+
+
+def scm_deg_step(cfg, dev, seed) -> dict:
+    """One train step (make_train_step at bsz 128, f32) of cfg, which
+    has pred_with_deg: K3's launches counted from zero against the
+    derived count, its 4 degree tables per chunk -> the launches."""
+    batch = [x.to(dev) for x in scm_batch(SCM_BSZ, seed, cfg)]
+    model = scm_model(cfg, seed).to(dev)
+    step = scm_driver.make_train_step(
+        model, scm_driver.make_optimizer(model.parameters(), 1e-3),
+        return_weights="nodeedge")
+    sk.reset_launch_counts()
+    losses = step(*batch, 0.2, 0.1, 0.05, 1e-4)
+    torch.cuda.synchronize()
+    launches = dict(sk.LAUNCHES)
+    want = scm_driver.auto_chunks(SCM_BSZ) * k3_launches(cfg, train=True)
+    check(want > 0 and launches == k3_dict(want),
+          f"SCM {cfg.rep_net} pred_with_deg step: K3 launched {launches}, "
+          f"expected {want}")
+    check(np.isfinite(losses["total"].item()),
+          f"SCM {cfg.rep_net} pred_with_deg step: loss")
+    print(f"scm {cfg.rep_net} pred_with_deg step: loss "
+          f"{losses['total'].item():.6f}, K3 launches {launches} (derived "
+          f"{want})")
+    return launches
+
+
+def phase_scm_seq(dev, seed, data_dir) -> tuple:
+    """Phase 15: per SCM sequence network (SEQ_NETS) at the flagship's
+    configuration, a bsz-16 batch on the card against the CPU (phase
+    14's checks), the train step at bsz 128 and the eval forward at 512,
+    one pred_with_deg train step (K3's degree tables), and the ER command
+    line with its --rep_net for one epoch on phase 12's data (data_dir),
+    cli/scm_evaluate and a finetune; then a bidirectional GRU on the card
+    against the CPU -> (results, paths)."""
+    t0 = time.perf_counter()
+    out, paths = {}, {}
+    root = tempfile.mkdtemp(prefix="scm_seq_")
+    cli = SCM_CLI_ER + ["--synthetic", "True", "--synthetic_pairs",
+                        str(SCM_CLI_PAIRS), "--seed", str(seed),
+                        "--train_epochs", "1", "--save_data_dir", data_dir]
+    for i, (net, kw) in enumerate(SEQ_NETS.items()):
+        t1 = time.perf_counter()
+        cfg = scm_flagship_config().replace(rep_net=net, **kw)
+        worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ)
+        timing = scm_timing(cfg, dev, seed + 10 * i + 1,
+                            train_bszs=(SCM_BSZ,))
+        deg = scm_deg_step(cfg.replace(pred_with_deg=True), dev,
+                           seed + 10 * i + 2)
+        paths[f"scm_{net}_pred_with_deg_step"] = deg
+        extra = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
+        paths.update(scm_net_cli(net, cli, root, extra))
+        out[net] = dict(worst=worst, timing=timing, deg_step=deg,
+                        step_launches=k3_launches(cfg, train=True))
+        print(f"scm seq: {net} took {time.perf_counter() - t1:.1f} s")
+    cfg = scm_flagship_config().replace(**SEQ_GRU)
+    out["GRU-bi"] = dict(worst=scm_card_vs_cpu(cfg, dev, seed + 40,
+                                               SCM_NET_CMP_BSZ))
+    print(f"scm seq: phase 15 took {time.perf_counter() - t0:.1f} s")
+    return out, paths
+
+
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
-                 bench_launches, scm, scm_nets) -> dict:
+                 bench_launches, scm, scm_nets, scm_seq) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -2120,6 +2232,11 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
         k3["max_abs_err"] = max(k3["max_abs_err"], t["err"])
     k3["launches_scm_nets_step"] = {net: scm_nets[net]["step_launches"]
                                     for net in SCM_NETS}
+    # phase 15: the sequence networks launch K3 for pred_with_deg's
+    # degree tables only
+    k3["launches_scm_seq_deg_step"] = {
+        net: scm_seq[net]["deg_step"].get("segment_sum_unsorted", 0)
+        for net in SEQ_NETS}
 
     return {"kernels": [
         k12("segment_sum_sorted",
@@ -2267,13 +2384,19 @@ def main() -> int:
     # phase 14: the SCM graph networks, each command line counted from zero
     scm_nets, net_paths = phase_scm_nets(dev, args.seed, cli_data)
     paths.update(net_paths)
-    print(json.dumps({"paths": paths}))
     print(f"phase 14 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
+    # phase 15: the SCM sequence networks, each run counted from zero
+    scm_seq, seq_paths = phase_scm_seq(dev, args.seed + 20, cli_data)
+    paths.update(seq_paths)
+    print(json.dumps({"paths": paths}))
+    print(f"phase 15 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches, scm,
-                                  scm_nets)))
+                                  scm_nets, scm_seq)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

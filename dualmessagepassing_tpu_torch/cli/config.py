@@ -9,7 +9,7 @@ in a flat dict (the reference's config dict), and `process_model_config`
 size formulas) before ModelConfig construction.
 
 What the port runs is narrower than what parses: get_train_config refuses
---rep_net CNN, RNN and TXL (the sequence networks are not ported) and
+the attention predict nets (--pred_net, ATTN_PRED_NETS: not ported) and
 --dp_devices > 1 (the port has no data-parallel path), before any data is
 built. --device picks the torch device (default cuda); --gpu_id N >= 0
 picks cuda:N, and -1 the current CUDA device, never the CPU (the
@@ -27,6 +27,11 @@ from typing import Any, Dict
 import torch
 
 from ..utils.io import str2bool, str2list, str2value
+
+# the JAX package's attention predict nets (models/pred_attn.py:527-535)
+ATTN_PRED_NETS = ("MeanAttnPredictNet", "SumAttnPredictNet",
+                  "MaxAttnPredictNet", "MeanMemAttnPredictNet",
+                  "SumMemAttnPredictNet", "MaxMemAttnPredictNet", "DIAMNet")
 
 
 def add_model_config(parser):
@@ -193,10 +198,10 @@ def get_train_config(argv=None) -> Dict[str, Any]:
     add_data_config(parser)
     add_train_config(parser)
     args = parser.parse_args(argv)
-    if args.rep_net in ("CNN", "RNN", "TXL"):
-        parser.error(f"--rep_net {args.rep_net}: the port has the SCM graph "
-                     "networks; the sequence networks come with slice D2 "
-                     "of the port (ROADMAP)")
+    if args.pred_net in ATTN_PRED_NETS:
+        parser.error(f"--pred_net {args.pred_net}: the port has the pooling "
+                     "predict nets; the attention predict nets come with "
+                     "slice D2b of the port (ROADMAP)")
     if args.dp_devices > 1:
         parser.error(f"--dp_devices {args.dp_devices}: the port has no "
                      "data-parallel SCM path; it comes with slice E of the "

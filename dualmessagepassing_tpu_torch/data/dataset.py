@@ -12,8 +12,7 @@ remove_loops (252-270), add_reversed_edges (273-327), the eigenvalue
 bounds (330-380).
 
 The graph collate serves the GNNs, batchify_lrp (dataset.py:257-297)
-LRP and DMPLRP; the EdgeSeq collate (batchify_edgeseq) of CNN, RNN and
-TXL is not ported.
+LRP and DMPLRP, batchify_edgeseq (dataset.py:215-256) CNN, RNN and TXL.
 """
 
 from __future__ import annotations
@@ -74,6 +73,10 @@ class GraphAdjDataset:
                 rec["edge_mask"] = np.arange(len(em)) < n_keep
                 rec["n_edge"] = np.int32(n_keep)
             x["edge_weights"] = None
+            # the records changed in place: their cached edge sequences
+            # (batchify_edgeseq) go too
+            x.pop("_edgeseq_pattern", None)
+            x.pop("_edgeseq_graph", None)
         self.invalidate_collate_cache()
         return self
 
@@ -191,6 +194,43 @@ class GraphAdjDataset:
 
         return ids, pattern, graph, t(counts), (t(node_w), t(edge_w))
 
+    def batchify_edgeseq(self, indices: Sequence[int],
+                         return_weights: str = "none"):
+        """The EdgeSeq collate (reference EdgeSeqDataset.batchify,
+        dataset.py:995-1050): batchify's tuple with EdgeSeqBatch pattern
+        and graph and no node weights; the edge weights follow the tuple
+        sort. Each record keeps its sequence (under "_edgeseq_pattern",
+        "_edgeseq_graph") beside the record it was made from, and makes
+        it again when the transforms replace that record."""
+        batch = [self.data[i] for i in indices]
+        ids = [x["id"] for x in batch]
+
+        def seq(x, which):
+            key = f"_edgeseq_{which}"
+            cached = x.get(key)
+            if cached is None or cached[0] is not x[which]:
+                cached = (x[which], G.record_to_edgeseq(x[which]))
+                x[key] = cached
+            return cached[1]
+
+        p_seqs = [seq(x, "pattern") for x in batch]
+        g_seqs = [seq(x, "graph") for x in batch]
+        counts = np.asarray([x["counts"] for x in batch], np.float32)[:, None]
+        edge_w = None
+        if "edge" in return_weights:
+            rows = []
+            for x, s in zip(batch, g_seqs):
+                w = np.asarray(self._edge_weights(x), np.float32)
+                padded = np.zeros((x["graph"]["edge_mask"].shape[0],),
+                                  np.float32)
+                order = s["order"]
+                w = w[order[order < len(w)]]
+                padded[: len(w)] = w
+                rows.append(padded)
+            edge_w = torch.from_numpy(np.stack(rows))
+        return (ids, G.batch_edgeseqs(p_seqs), G.batch_edgeseqs(g_seqs),
+                torch.from_numpy(counts), (None, edge_w))
+
     def batchify_lrp(self, indices: Sequence[int],
                      return_weights: str = "none", seq_len: int = 4):
         """The LRP collate (reference LRPDataset.batchify, dataset.py:
@@ -281,15 +321,13 @@ def lrp_batch(gb: G.GraphBatch, perm_rows: List[Dict[str, np.ndarray]]):
 
 class CollateView:
     """A dataset view whose batchify routes to the collate a model family
-    needs: 'graph' (the GNNs) or 'lrp' (LRP, DMPLRP); 'edgeseq' (CNN, RNN,
-    TXL) is not ported."""
+    needs: 'graph' (the GNNs), 'edgeseq' (CNN, RNN, TXL) or 'lrp' (LRP,
+    DMPLRP)."""
 
     def __init__(self, dataset: GraphAdjDataset, kind: str = "graph",
                  lrp_seq_len: int = 4, auto_envelope: bool = False):
-        if kind not in ("graph", "lrp"):
-            raise NotImplementedError(
-                f"collate kind {kind!r}: the EdgeSeq networks come with "
-                "slice D2 of the port (ROADMAP)")
+        if kind not in ("graph", "edgeseq", "lrp"):
+            raise ValueError(kind)
         self.dataset = dataset
         self.kind = kind
         self.lrp_seq_len = lrp_seq_len
@@ -302,6 +340,8 @@ class CollateView:
         return self.dataset.sizes()
 
     def batchify(self, indices, return_weights="none"):
+        if self.kind == "edgeseq":
+            return self.dataset.batchify_edgeseq(indices, return_weights)
         if self.kind == "lrp":
             return self.dataset.batchify_lrp(indices, return_weights,
                                              self.lrp_seq_len)

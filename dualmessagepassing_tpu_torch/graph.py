@@ -1,6 +1,7 @@
 """Padded graph containers of the port (dualmessagepassing_tpu/graph.py:
-GraphBatch 36-107, FlatGraph 110, single_graph 304, add_reversed_edges
-352, compact_record 377, batch_graphs_dense 387, batch_graphs 401,
+GraphBatch 36-107, FlatGraph 110, EdgeSeqBatch 128-155, the EdgeSeq
+record functions 158-297, single_graph 304, add_reversed_edges 352,
+compact_record 377, batch_graphs_dense 387, batch_graphs 401,
 _bincount_batched 424).
 
 A GraphBatch is B graphs padded to one (V_max, E_max) envelope, layout
@@ -10,8 +11,11 @@ it is a flax struct pytree; here a plain dataclass of tensors, indices
 as int64 (what torch's indexing and the K3 kernel take), masks as bool.
 Host records are numpy dicts, exactly the JAX package's (the builders
 below are copies). A subclass adds fields of its own (models/lrp.
-LRPGraphBatch, the perm tables); to, slice and replace keep them. The
-EdgeSeq containers (graph.py:129-300) are not ported.
+LRPGraphBatch, the perm tables); to, slice and replace keep them.
+
+An EdgeSeqBatch is the same graphs as edge sequences for CNN, RNN and
+TXL: tuples (u, v, ul, el, vl) sorted by (u, v, el), [B, L], post-
+padded, with the static node count its degree tables span.
 """
 
 from __future__ import annotations
@@ -131,6 +135,61 @@ class FlatGraph:
         return self.senders.shape[0]
 
 
+_SEQ_FIELDS = ("u", "v", "ul", "el", "vl", "mask", "rev_flag", "n_tuple")
+
+
+@dataclasses.dataclass
+class EdgeSeqBatch:
+    """B graphs as edge sequences (reference EdgeSeq, dataset.py:111-769):
+    tuples (u, v, ul, el, vl) sorted by (u, v, el), padded to L (post-
+    pad). num_nodes is the padded node axis of the degree tables, an int
+    that to, slice and replace keep."""
+
+    u: torch.Tensor         # [B, L] int64
+    v: torch.Tensor
+    ul: torch.Tensor
+    el: torch.Tensor
+    vl: torch.Tensor
+    mask: torch.Tensor      # [B, L] bool
+    rev_flag: torch.Tensor  # [B, L] bool
+    n_tuple: torch.Tensor   # [B] int64
+    num_nodes: int
+
+    @property
+    def batch_size(self) -> int:
+        return self.u.shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.u.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.u.device
+
+    def _map(self, fn) -> "EdgeSeqBatch":
+        return dataclasses.replace(self, **{
+            f: fn(getattr(self, f)) for f in _SEQ_FIELDS})
+
+    def to(self, device, non_blocking: bool = False) -> "EdgeSeqBatch":
+        return self._map(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def replace(self, **kw) -> "EdgeSeqBatch":
+        return dataclasses.replace(self, **kw)
+
+    def slice(self, rows: slice) -> "EdgeSeqBatch":
+        return self._map(lambda t: t[rows])
+
+    # degrees over the real tuples, float32 counts (K3 on a CUDA tensor)
+    def out_degrees(self) -> torch.Tensor:
+        """[B, num_nodes] float32 out-degrees."""
+        return bincount_batched(self.u, self.mask, self.num_nodes)
+
+    def in_degrees(self) -> torch.Tensor:
+        """[B, num_nodes] float32 in-degrees."""
+        return bincount_batched(self.v, self.mask, self.num_nodes)
+
+
 # -----------------------------------------------------------------------------
 # host-side builders (numpy records, copies of the JAX package's)
 # -----------------------------------------------------------------------------
@@ -217,3 +276,131 @@ def batch_graphs(records: List[Dict[str, np.ndarray]]) -> GraphBatch:
     tensors; .to(device) ships it."""
     return GraphBatch(**{k: _tensor(np.stack([r[k] for r in records]))
                          for k in _FIELDS})
+
+
+# -----------------------------------------------------------------------------
+# EdgeSeq records (numpy, copies of the JAX package's)
+# -----------------------------------------------------------------------------
+
+def record_to_edgeseq(rec: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Graph record -> edge-sequence record: the real edges as tuples
+    sorted by (u, v, el) (EdgeSeq.from_graph), padded to the record's
+    E_max. "order" is the sort permutation, so per-edge targets can
+    follow the tuples."""
+    em = rec["edge_mask"].astype(bool)
+    n_edge = int(rec["n_edge"])
+    e_max = em.shape[0]
+    u = rec["senders"][em]
+    v = rec["receivers"][em]
+    el = rec["edge_label"][em]
+    nl = rec["node_label"]
+    order = np.lexsort((el, v, u))
+
+    def pad(x):
+        out = np.zeros((e_max,), x.dtype)
+        out[: n_edge] = x[order]
+        return out
+
+    return {
+        "u": pad(u), "v": pad(v), "el": pad(el),
+        "ul": pad(nl[u]), "vl": pad(nl[v]),
+        "mask": np.arange(e_max) < n_edge,
+        "rev_flag": pad(rec["rev_flag"][em]),
+        "n_tuple": np.int32(n_edge),
+        "num_nodes": int(rec["node_mask"].shape[0]),
+        "order": order,
+    }
+
+
+def edgeseq_add_tuples(rec: Dict[str, np.ndarray],
+                       tuples: np.ndarray) -> Dict[str, np.ndarray]:
+    """Tuple insertion in order (reference EdgeSeq.add_tuples, dataset.py:
+    352-445): the new (u, v, ul, el, vl) rows go into the (u, v, el)
+    order before existing rows of equal key. Several new tuples of equal
+    key keep their argument order (the reference's one-at-a-time
+    bisect_left reverses them). The envelope grows when they overflow
+    it."""
+    tuples = np.asarray(tuples)
+    if tuples.ndim == 1:
+        tuples = tuples[None]
+    m = rec["mask"].astype(bool)
+    n_old, n_new = int(m.sum()), len(tuples)
+    n = n_old + n_new
+    e_max = max(len(m), n)
+    cols = {k: np.concatenate([tuples[:, i], rec[k][m]])
+            for i, k in enumerate(("u", "v", "ul", "el", "vl"))}
+    cols["rev_flag"] = np.concatenate([
+        np.zeros(n_new, rec["rev_flag"].dtype), rec["rev_flag"][m]])
+    # a stable sort with the new rows first: new before equal existing
+    order = np.lexsort((cols["el"], cols["v"], cols["u"]))
+
+    def pad(x):
+        out = np.zeros((e_max,), x.dtype)
+        out[:n] = x[order]
+        return out
+
+    out = {k: pad(x) for k, x in cols.items()}
+    out["mask"] = np.arange(e_max) < n
+    out["n_tuple"] = np.int32(n)
+    out["num_nodes"] = max(int(rec["num_nodes"]),
+                           int(max(cols["u"].max(), cols["v"].max())) + 1
+                           if n else 0)
+    return out
+
+
+def edgeseq_to_graph(rec: Dict[str, np.ndarray],
+                     v_max: Optional[int] = None,
+                     e_max: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """Edge-sequence record -> graph record (reference EdgeSeq.to_graph,
+    dataset.py:560-591): the nodes are the ids the tuples name (u's
+    first, then v's, in order of appearance), renumbered 0..V-1, their
+    labels from ul/vl; "edge_key" numbers a run of equal (u, v) tuples
+    0, 1, ...; "node_id" keeps the original ids."""
+    m = rec["mask"].astype(bool)
+    u, v = rec["u"][m], rec["v"][m]
+    el = rec["el"][m]
+    nid2label: Dict[int, int] = {}
+    for a, la in zip(u, rec["ul"][m]):
+        nid2label.setdefault(int(a), int(la))
+    for b, lb in zip(v, rec["vl"][m]):
+        nid2label.setdefault(int(b), int(lb))
+    node_ids = np.asarray(list(nid2label.keys()), np.int64)
+    node_labels = np.asarray(list(nid2label.values()), np.int64)
+    remap = {int(x): i for i, x in enumerate(node_ids)}
+    senders = np.asarray([remap[int(x)] for x in u], np.int64)
+    receivers = np.asarray([remap[int(x)] for x in v], np.int64)
+    key = np.zeros(len(u), np.int64)
+    for i in range(1, len(u)):
+        if u[i] == u[i - 1] and v[i] == v[i - 1]:
+            key[i] = key[i - 1] + 1
+    n_v, n_e = len(node_ids), len(u)
+    v_max = v_max or n_v
+    e_max = e_max or n_e
+
+    def pad1(x, n):
+        out = np.zeros((n,), x.dtype)
+        out[: len(x)] = x
+        return out
+
+    return {
+        "senders": pad1(senders, e_max),
+        "receivers": pad1(receivers, e_max),
+        "node_label": pad1(node_labels, v_max),
+        "edge_label": pad1(el, e_max),
+        "node_mask": np.arange(v_max) < n_v,
+        "edge_mask": np.arange(e_max) < n_e,
+        "rev_flag": pad1(rec["rev_flag"][m], e_max),
+        "n_node": np.int32(n_v),
+        "n_edge": np.int32(n_e),
+        "node_id": pad1(node_ids, v_max),
+        "edge_key": pad1(key, e_max),
+    }
+
+
+def batch_edgeseqs(records: List[Dict[str, np.ndarray]]) -> EdgeSeqBatch:
+    """Stack edge-sequence records (one L) into an EdgeSeqBatch of CPU
+    tensors; num_nodes is the largest of theirs."""
+    return EdgeSeqBatch(
+        **{k: _tensor(np.stack([r[k] for r in records]))
+           for k in _SEQ_FIELDS},
+        num_nodes=max(r["num_nodes"] for r in records))

@@ -38,9 +38,9 @@ class ModelConfig:
     """Flattened model configuration (the reference's flags, config.py),
     field for field the JAX package's, so a config translates with
     ModelConfig(**dataclasses.asdict(jax_config)). Sizes are model-facing
-    (after the reversed-edge doubling, train.py:38-65). The fields of the
-    rep nets that are not ported (CNN, RNN, TXL) are carried and
-    unused."""
+    (after the reversed-edge doubling, train.py:38-65). The attention
+    predict nets' fields (pred_infer_steps, pred_num_heads,
+    pred_mem_len, pred_mem_init) are carried and unused."""
 
     max_ngv: int
     max_ngvl: int
@@ -111,7 +111,8 @@ class ModelConfig:
     # the JAX package's lowering of the segment-sums ("onehot", "segment",
     # None = auto); every choice computes the same sum, the port has one
     scatter_method: Optional[str] = None
-    # recompute each DMP layer in the backward (DMPNNStack remat)
+    # recompute each rep-net layer in the backward (DMPNN, CompGCN, R-GCN,
+    # R-GIN, CNN and RNN)
     rep_remat: bool = False
 
     def enc_dims(self, which: str) -> Dict[str, int]:

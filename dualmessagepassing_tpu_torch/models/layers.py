@@ -82,7 +82,8 @@ class MaskedBatchNorm(nn.Module):
     above 256 rows exactly); the normalisation runs in the input's dtype
     as (x - mean) * rsqrt(var + eps), like the JAX package. The `train`
     argument, not nn.Module.training, selects batch statistics, and in
-    train mode the running buffers are updated in place.
+    train mode the running buffers are updated in place (unless
+    update_stats is False: a rematerialised layer's recomputation).
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -96,7 +97,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         """x [N, F]; mask [N] bool marks the rows the statistics use."""
         dt = x.dtype
         if train:
@@ -105,6 +107,7 @@ class MaskedBatchNorm(nn.Module):
             cnt = torch.clamp(m.sum(), min=1.0)
             mean = (xf * m).sum(0) / cnt
             var = (((xf - mean) ** 2) * m).sum(0) / cnt
+        if train and update_stats:
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 keep = 1.0 - self.momentum
@@ -112,7 +115,7 @@ class MaskedBatchNorm(nn.Module):
                     keep * self.running_mean + self.momentum * mean)
                 self.running_var.copy_(
                     keep * self.running_var + self.momentum * unbiased)
-        else:
+        if not train:
             mean, var = self.running_mean, self.running_var
         y = (x - mean.to(dt)) * torch.rsqrt(var + self.eps).to(dt)
         return y * self.weight.to(dt) + self.bias.to(dt)

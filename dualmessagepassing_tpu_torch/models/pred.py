@@ -35,7 +35,8 @@ class PredictNet(nn.Module):
 
     def __init__(self, rep_dim: int, hidden_dim: int, act: str = "relu",
                  dropout: float = 0.0, return_weights: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 p_rep_dim: Optional[int] = None):
         super().__init__()
         h = hidden_dim
         self.act_fn = map_activation_str_to_fn(act)
@@ -46,7 +47,9 @@ class PredictNet(nn.Module):
             return Dense(din, dout, init=init, activation=act,
                          generator=generator)
 
-        self.p_fc = dense(rep_dim, h)
+        # flax sizes p_fc from the pattern's rep, which may be narrower
+        # than the graph's (EdgeSeqModel with an encoder of its own)
+        self.p_fc = dense(p_rep_dim or rep_dim, h)
         self.g_fc = dense(rep_dim, h)
         if return_weights:
             self.weight_fc1 = dense(4 * h + 2, h)
@@ -118,12 +121,13 @@ PRED_NETS = {
 def build_pred_net(name: str, rep_dim: int, hidden_dim: int, act: str,
                    dropout: float, return_weights: bool,
                    generator: Optional[torch.Generator] = None,
-                   **kw) -> PredictNet:
+                   p_rep_dim: Optional[int] = None, **kw) -> PredictNet:
     """create_pred_net (basemodel.py:1074-1366) for the pooling nets; the
     extra options of the attention variants (infer_steps, num_heads,
-    mem_len, mem_init) are accepted and unused."""
+    mem_len, mem_init) are accepted and unused. p_rep_dim is the
+    pattern rep's width where it is not rep_dim."""
     if name not in PRED_NETS:
         raise ValueError(f"unknown or unported pred_net '{name}'")
     return PRED_NETS[name](rep_dim, hidden_dim, act=act, dropout=dropout,
                            return_weights=return_weights,
-                           generator=generator)
+                           generator=generator, p_rep_dim=p_rep_dim)

@@ -5,11 +5,13 @@ into the port.
 
 DMPNN is the flagship (__graft_entry__.py:_flagship_config); CompGCN
 (models/compgcn.py), R-GCN and R-GIN (models/rgnn.py), LRP and DMPLRP
-(models/lrp.py) are the paper's other graph networks. The EdgeSeq models
-(CNN, RNN, TXL) are not ported. Submodules are named by their flax paths
-(g_rep_net.compgcn_0.in_weight, g_rep_net.rgin_1.rel_weights.weight,
-g_rep_net.lrp_0.degnet_0.kernel, g_rep_net.dmplrp_2.dmp.nmlp.fc0.kernel,
-...), so params_from_flax needs no table of names.
+(models/lrp.py) are the paper's other graph networks, CNN, RNN and TXL
+(models/edgeseq.py) its sequence networks. Submodules are named by their
+flax paths (g_rep_net.compgcn_0.in_weight, g_rep_net.rgin_1.rel_weights.
+weight, g_rep_net.lrp_0.degnet_0.kernel, g_rep_net.rnn_0.GRUCell_1.hn.
+bias, g_rep_net.attn_2.layer_norm.scale, ...), and the sequence networks
+keep flax's kernel layouts (nn.Conv [k, in, out], the RNN cells' gate
+kernels [in, h]), so params_from_flax needs no table of names.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 from .basemodel import GraphAdjModelV2, ModelConfig
 from .compgcn import CompGCN
 from .dmpnn import DMPNNStack
+from .edgeseq import CNN, RNN, TransformerXL
 from .lrp import DMPLRP, LRP
 from .rgnn import RGCN, RGIN
 
@@ -51,7 +54,8 @@ class DMPNN(GraphAdjModelV2):
 
 MODEL_REGISTRY: Dict[str, type] = {
     "DMPNN": DMPNN, "CompGCN": CompGCN, "RGCN": RGCN, "RGIN": RGIN,
-    "LRP": LRP, "DMPLRP": DMPLRP}
+    "LRP": LRP, "DMPLRP": DMPLRP, "CNN": CNN, "RNN": RNN,
+    "TXL": TransformerXL}
 
 
 def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> nn.Module:
@@ -112,9 +116,11 @@ def k3_launches(cfg: ModelConfig, train: bool) -> int:
       LRP     L (pool sum) + 1 (pool counts) + 1 (in-degrees)
       DMPLRP  2L (aggregation, pool sum) + 1 (pool counts) + 1
               (out-degrees)
+      CNN, RNN, TXL  0 (convolutions, recurrences, attention)
 
     backward: DMPNN 2L (the two endpoint gathers), CompGCN, RGCN, RGIN L
-    (the sender gather), LRP L (the cell gather), DMPLRP 3L; a
+    (the sender gather), LRP L (the cell gather), DMPLRP 3L, the
+    sequence networks 0; a
     rematerialised layer (rep_remat: DMPNN, CompGCN, RGCN, RGIN) repeats
     its forward launches but the degrees'. pred_with_deg adds the two
     degree tables of each side."""
@@ -134,6 +140,8 @@ def k3_launches(cfg: ModelConfig, train: bool) -> int:
         fwd, bwd, remat = layers + 2, layers, 0
     elif net == "DMPLRP":
         fwd, bwd, remat = 2 * layers + 2, 3 * layers, 0
+    elif net in ("CNN", "RNN", "TXL"):
+        fwd, bwd, remat = 0, 0, 0
     else:
         raise ValueError(f"unknown or unported rep_net '{net}'")
     fwd = 2 * fwd + (4 if cfg.pred_with_deg else 0)

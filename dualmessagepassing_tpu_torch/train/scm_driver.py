@@ -11,6 +11,11 @@ Evaluation metrics (train.py:847-1061): MAE, MSE, RMSE of the relu'd
 counts, the AUC of count > 0 detection (unc/evaluate.roc_auc_score, no
 scikit-learn), and MNED/MEED, the mean per-graph L1 distance between the
 predicted and the gold node/edge weights.
+
+A model whose sequence length changes (CNN's pooling, models/edgeseq.py)
+has refine_node_weights / refine_edge_weights; the train step and the
+evaluation take the weight targets through them to the predictions'
+length (train.py:630,641).
 """
 
 from __future__ import annotations
@@ -189,6 +194,16 @@ def apply_model(model, pattern: GraphBatch, graph: GraphBatch,
     return cast_floats(out, torch.float32) if amp else out
 
 
+def refine_weights(model, kind: str,
+                   w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Weight targets w [B, L] through model.refine_{kind}_weights
+    (kind "node" or "edge"), where the model has it."""
+    fn = getattr(model, f"refine_{kind}_weights", None)
+    if w is None or fn is None:
+        return w
+    return fn(w[..., None])[..., 0]
+
+
 def auto_chunks(bsz: int) -> int:
     """The JAX step's automatic microbatch count: the largest k <=
     bsz // 128 that divides bsz (~128-pair chunks)."""
@@ -216,7 +231,8 @@ def make_train_step(model, tx: SCMOptimizer, bp_loss: str = "MSE",
     equal microbatches (one update; the losses are the chunks' mean);
     None picks auto_chunks(bsz), as the JAX step does, and 1 never
     chunks. The rep regulariser is each chunk's per-element mean, as in
-    the JAX package (scm_driver.py:99-107).
+    the JAX package (scm_driver.py:99-107). The weight targets go through
+    refine_weights first, for the whole batch (scm_driver.py:166-167).
 
     The step carries .model and .optimizer."""
     use_node_w = "node" in return_weights
@@ -232,6 +248,10 @@ def make_train_step(model, tx: SCMOptimizer, bp_loss: str = "MSE",
             raise ValueError(
                 f"batch size {bsz} not divisible by accum_chunks {k}")
         m = bsz // k
+        if use_node_w:
+            node_weights = refine_weights(model, "node", node_weights)
+        if use_edge_w:
+            edge_weights = refine_weights(model, "edge", edge_weights)
         tx.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
         for c in range(k):
@@ -270,6 +290,12 @@ def make_eval_step(model, amp: bool = False) -> Callable:
 
     eval_step.model = model
     return eval_step
+
+
+def _mask(batch, name: str) -> torch.Tensor:
+    """A GraphBatch's node_mask or edge_mask, an EdgeSeqBatch's mask."""
+    m = getattr(batch, name, None)
+    return batch.mask if m is None else m
 
 
 def _to(x, device):
@@ -325,10 +351,11 @@ def train_epoch(train_step: Callable, dataset, sampler,
             idx, return_weights)
         step = epoch * full_epoch_steps + batch_id     # scalar clock
         lr_mult = lr_s(lr_step0 + batch_id)            # LR clock
+        # placeholder targets; an EdgeSeqBatch has one mask for both
         if nw is None:
-            nw = torch.zeros(graph.node_mask.shape)
+            nw = torch.zeros(_mask(graph, "node_mask").shape)
         if ew is None:
-            ew = torch.zeros(graph.edge_mask.shape)
+            ew = torch.zeros(_mask(graph, "edge_mask").shape)
         scal = dict(neg_slp=neg_slp_s(step), match_loss_w=match_w_s(step),
                     match_reg_w=match_r_s(step), rep_reg_w=rep_r_s(step),
                     lr=lr_mult * config.get("lr", 1e-3), step=step)
@@ -380,8 +407,11 @@ def evaluate_epoch(eval_step: Callable, dataset, sampler,
                    return_weights: str = "none") -> Dict[str, Any]:
     """The evaluation metrics (train.py:847-1061) and the per-sample
     dumps; time_avg / time_total are the forward's wall time, the
-    device synchronised, per sample and in all."""
-    device = model_device(eval_step.model)
+    device synchronised, per sample and in all. The gold weights go
+    through refine_weights of the eval step's model before the NED/EED
+    sums (scm_driver.py:436-446)."""
+    model = eval_step.model
+    device = model_device(model)
     preds, golds, all_ids, neds, eeds = [], [], [], [], []
     t_total = 0.0
     n_items = 0
@@ -402,11 +432,13 @@ def evaluate_epoch(eval_step: Callable, dataset, sampler,
         if pred_v is not None and nw is not None:
             vm = g_v_mask.cpu().numpy()
             pv = np.maximum(pred_v.cpu().numpy(), 0) * vm
-            neds.append(np.abs(pv - nw.numpy() * vm).sum(axis=1))
+            w = refine_weights(model, "node", nw).numpy()
+            neds.append(np.abs(pv - w * vm).sum(axis=1))
         if pred_e is not None and ew is not None:
             em = g_e_mask.cpu().numpy()
             pe = np.maximum(pred_e.cpu().numpy(), 0) * em
-            eeds.append(np.abs(pe - ew.numpy() * em).sum(axis=1))
+            w = refine_weights(model, "edge", ew).numpy()
+            eeds.append(np.abs(pe - w * em).sum(axis=1))
 
     pred = np.concatenate(preds) if preds else np.zeros(0)
     gold = np.concatenate(golds) if golds else np.zeros(0)

@@ -741,3 +741,77 @@ def test_graph_network_train_step_card_matches_cpu(cuda, net):
     for k in gc:
         bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
         assert (gg[k] - gc[k]).abs().max().item() <= bound, k
+
+
+# --- the SCM sequence networks ---------------------------------------------
+
+@pytest.mark.parametrize("net, kw", [
+    ("CNN", {}), ("RNN", {}),
+    ("RNN", dict(rep_rnn_type="GRU", rep_rnn_bidirectional=True)),
+    ("TXL", {})], ids=["CNN", "LSTM", "GRU-bi", "TXL"])
+def test_sequence_network_train_step_card_matches_cpu(cuda, net, kw):
+    """Each SCM sequence network at the flagship's width with
+    pred_with_deg on a small batch (B = 4, graph 64 V / 256 E with
+    reversed edges: 512 tuples, 3 + 3 layers; cuDNN's conv and RNN with
+    TF32 off): the loss and every parameter gradient on the card against
+    the CPU (f32: 1e-4 of each tensor's largest magnitude plus 1e-5 of
+    the largest gradient), K3's launches (the 4 degree tables) against
+    models/scm_models.k3_launches, and a make_train_step whose edge
+    targets it refines to the predictions' length."""
+    from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
+                                                    batch_edgeseqs,
+                                                    record_to_edgeseq,
+                                                    single_graph)
+    from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
+    from dualmessagepassing_tpu_torch.models.scm_models import (
+        build_model, k3_launches)
+    from dualmessagepassing_tpu_torch.train.losses import scm_loss
+    from dualmessagepassing_tpu_torch.train.scm_driver import (
+        apply_model, make_optimizer, make_train_step, refine_weights)
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    sides = []
+    for v, e in ((8, 8), (64, 256)):
+        sides.append(batch_edgeseqs([record_to_edgeseq(add_reversed_edges(
+            single_graph(v, rng.integers(0, v, e), rng.integers(0, v, e),
+                         rng.integers(0, 16, v), rng.integers(0, 16, e)),
+            16)) for _ in range(4)]))
+    cfg = ModelConfig(max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
+                      max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
+                      rep_net=net, filter_net="ScalarFilter",
+                      pred_with_deg=True, pred_return_weights="edge", **kw)
+    targets = [torch.from_numpy(rng.poisson(lam, shape).astype(np.float32))
+               for lam, shape in ((3.0, (4, 1)), (1.0, (4, 512)))]
+    scal = dict(neg_slope=0.2, match_loss_w=0.1, match_reg_w=0.05,
+                rep_reg_w=1e-3)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, device=dev, seed=2)
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(3)
+            for p in model.parameters():
+                p.add_((0.02 * torch.randn(p.shape, generator=gen)).to(dev))
+        batch = [s.to(dev) for s in sides] + [x.to(dev) for x in targets]
+        sk.reset_launch_counts()
+        losses = scm_loss(apply_model(model, *batch[:2], train=True),
+                          batch[2], None,
+                          refine_weights(model, "edge", batch[3]), **scal)
+        losses["total"].backward()
+        torch.cuda.synchronize()
+        launches = dict(sk.LAUNCHES)
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        step = make_train_step(model, make_optimizer(model.parameters(),
+                                                     1e-3),
+                               return_weights="edge")
+        stepped = step(*batch[:3], None, batch[3], *scal.values())
+        out[str(dev)] = (losses["total"].item(), stepped["total"].item(),
+                         grads, launches)
+    (lc, sc_, gc, kc), (lg, sg, gg, kg) = out["cpu"], out[str(cuda)]
+    assert kc == {} and kg == {"segment_sum_unsorted":
+                               k3_launches(cfg, train=True)} == {
+                                   "segment_sum_unsorted": 4}
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and abs(sg - sc_) <= 1e-5 * abs(sc_)
+    gmax = max(g.abs().max().item() for g in gc.values())
+    for k in gc:
+        bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
+        assert (gg[k] - gc[k]).abs().max().item() <= bound, k

@@ -34,7 +34,9 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     "cli.scm_evaluate", "data.dual", "gates.scm_convergence",
     "gates.unc_convergence",
     # the SCM graph networks
-    "models.rgnn", "models.lrp", "data.lrp")]
+    "models.rgnn", "models.lrp", "data.lrp",
+    # the SCM sequence networks
+    "models.edgeseq")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -65,4 +67,4 @@ def test_port_imports_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     # the package, its subpackages and every module listed above
-    assert int(proc.stdout.split()[-1]) >= 59
+    assert int(proc.stdout.split()[-1]) >= 60

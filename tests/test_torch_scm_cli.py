@@ -128,18 +128,35 @@ def test_config_defaults_equal_jax():
 
 
 def test_refused_at_parse_time(capsys):
-    """The sequence networks and data parallelism are refused before any
-    data is built, naming the slice that brings them; the graph networks
-    parse."""
+    """Data parallelism is refused before any data is built, naming the
+    slice that brings it; all nine representation networks of the JAX
+    CLI parse, the sequence networks to the JAX CLI's config."""
     for net in ("CNN", "RNN", "TXL"):
-        with pytest.raises(SystemExit):
-            tcfg.get_train_config(["--rep_net", net])
-        assert "slice D2" in capsys.readouterr().err
+        argv = ["--rep_net", net, "--rep_rnn_type", "GRU",
+                "--rep_cnn_kernel_sizes", "3"]
+        got = tcfg.get_train_config(argv)
+        assert got.pop("device") == "cuda"
+        assert got == jcfg.get_train_config(argv)
     for net in ("DMPNN", "CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"):
         assert tcfg.get_train_config(["--rep_net", net])["rep_net"] == net
     with pytest.raises(SystemExit):
         ttrain.main(TINY + ["--dp_devices", "2"])
     assert "slice E" in capsys.readouterr().err
+
+
+def test_attention_predict_nets_refused_at_parse_time(capsys):
+    """The JAX package's attention predict nets (models/pred_attn.py:
+    527-535) are refused before any data is built, naming slice D2b; the
+    pooling nets parse."""
+    from dualmessagepassing_tpu.models.pred_attn import ATTN_PRED_NETS
+    assert set(tcfg.ATTN_PRED_NETS) == set(ATTN_PRED_NETS)
+    for name in ATTN_PRED_NETS:
+        with pytest.raises(SystemExit):
+            ttrain.main(TINY + ["--pred_net", name])
+        assert "slice D2b" in capsys.readouterr().err
+    for name in ("SumPredictNet", "MeanPredictNet", "MaxPredictNet"):
+        assert tcfg.get_train_config(["--pred_net", name])["pred_net"] == \
+            name
 
 
 def test_gpu_id_minus_one_asks_for_cuda(tmp_path):
@@ -402,11 +419,18 @@ def test_cli_training_follows_the_jax_cli(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra", [
     ["--rep_net", "RGCN"],
     # the JAX step compiles anew for each batch's perm envelope: 24 pairs
-    ["--rep_net", "LRP", "--synthetic_pairs", "24"]], ids=["RGCN", "LRP"])
+    ["--rep_net", "LRP", "--synthetic_pairs", "24"],
+    ["--rep_net", "CNN"],
+    ["--rep_net", "RNN", "--rep_rnn_bidirectional", "True"],
+    ["--rep_net", "TXL", "--rep_txl_seg_len", "8", "--rep_txl_mem_len",
+     "8"]], ids=["RGCN", "LRP", "CNN", "RNN", "TXL"])
 def test_cli_training_follows_the_jax_cli_for_other_nets(tmp_path,
                                                          monkeypatch, extra):
     """test_cli_training_follows_the_jax_cli for R-GCN (the node-only
-    scaffold, no edge head) and LRP (the LRP collate)."""
+    scaffold, no edge head), LRP (the LRP collate) and the sequence
+    networks (the EdgeSeq collate; CNN's pooling refines the dev/test
+    edge weights before the EED, as the JAX CLI's evaluate_epoch(model=)
+    does; TXL over four segments)."""
     follow_the_jax_cli(tmp_path, monkeypatch, extra)
 
 
@@ -502,12 +526,15 @@ def test_cli_train_finetune_dual_evaluate(tmp_path):
         assert out["dev"][k] == logged[k], k
 
 
-@pytest.mark.parametrize("net", ["CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"])
+@pytest.mark.parametrize("net", ["CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP",
+                                 "CNN", "RNN", "TXL"])
 def test_cli_train_finetune_evaluate_other_nets(tmp_path, net):
-    """Each SCM graph network through the CLIs on --device cpu: train,
-    finetune onto a larger vocabulary (expand_params), then scm_evaluate
-    of the first run, whose best-epoch dev metrics equal the training
-    log's (the same data, checkpoint and CPU arithmetic)."""
+    """Each SCM graph and sequence network through the CLIs on --device
+    cpu: train, finetune onto a larger vocabulary (expand_params), then
+    scm_evaluate of the first run, whose best-epoch dev metrics equal the
+    training log's (the same data, checkpoint and CPU arithmetic). The
+    sequence networks predict edge weights only: their MNED is NaN, as
+    in the JAX package, and their MEED finite."""
     base = TINY + ["--rep_net", net, "--train_epochs", "1"]
     d1 = ttrain.main(base + VOCAB2 + ["--save_model_dir",
                                       str(tmp_path / "a")])
@@ -519,7 +546,8 @@ def test_cli_train_finetune_evaluate_other_nets(tmp_path, net):
     assert "finetuning from" in open(os.path.join(d2, "log.txt")).read()
     for d in (d1, d2):
         res = json.load(open(os.path.join(d, "dev_results0.json")))
-        assert all(np.isfinite(res[k]) for k in ("MAE", "MSE", "MNED"))
+        weights = "MEED" if net in ("CNN", "RNN", "TXL") else "MNED"
+        assert all(np.isfinite(res[k]) for k in ("MAE", "MSE", weights))
     out = teval.main(["--load_model_dir", d1, "--device", "cpu"])
     logged = json.load(open(os.path.join(d1, "dev_results0.json")))
     for k in ("MAE", "MSE", "RMSE", "MNED", "MEED"):

@@ -259,8 +259,15 @@ def test_batchify_equals_jax(auto_envelope, rev, loops):
         c = td.batchify(idx, "none")
         assert c[4] == (None, None)
     assert td.compute_eigenvalue_bounds() == jd.compute_eigenvalue_bounds()
-    with pytest.raises(NotImplementedError):
-        tds.CollateView(td, "edgeseq")
+    # the EdgeSeq collate of CNN, RNN and TXL (tests/test_torch_scm_
+    # edgeseq_data.py holds it field for field)
+    idx = [0, 5, 7, 3]
+    a = jds.CollateView(jd, "edgeseq").batchify(idx, "edge")
+    b = tds.CollateView(td, "edgeseq").batchify(idx, "edge")
+    for f in ("u", "v", "ul", "el", "vl", "mask", "rev_flag"):
+        np.testing.assert_array_equal(getattr(b[2], f).numpy(),
+                                      np.asarray(getattr(a[2], f)))
+    np.testing.assert_array_equal(b[4][1].numpy(), np.asarray(a[4][1]))
     assert tds.collate_kind_for("CNN") == jds.collate_kind_for("CNN")
 
 

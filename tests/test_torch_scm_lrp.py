@@ -116,8 +116,13 @@ def test_batchify_lrp_equals_jax():
         for x, y in zip((a[3], *a[4]), (b[3], *b[4])):
             np.testing.assert_array_equal(y.numpy(), np.asarray(x))
     assert tds.collate_kind_for("DMPLRP") == "lrp"
-    with pytest.raises(NotImplementedError, match="D2"):
-        tds.CollateView(td, "edgeseq")
+    # the same records through the EdgeSeq collate (CNN, RNN, TXL)
+    a = jds.CollateView(jd, "edgeseq").batchify([0, 5, 7, 3], "edge")
+    b = tds.CollateView(td, "edgeseq").batchify([0, 5, 7, 3], "edge")
+    for f in ("u", "v", "el", "mask", "rev_flag"):
+        np.testing.assert_array_equal(getattr(b[2], f).numpy(),
+                                      np.asarray(getattr(a[2], f)))
+    np.testing.assert_array_equal(b[4][1].numpy(), np.asarray(a[4][1]))
 
 
 def test_lrp_batch_to_and_slice_keep_the_perm_tables():

@@ -143,8 +143,13 @@ def test_params_from_flax_consumes_every_leaf(case):
     assert set(sd) == set(m.state_dict())
     for k, v in m.state_dict().items():
         assert v.shape == sd[k].shape, k
+    # the sequence networks build on the same configuration
+    # (tests/test_torch_scm_edgeseq.py holds them against the JAX package)
+    for net in ("CNN", "RNN", "TXL"):
+        seq = sm.build_model(case["cfg"].replace(rep_net=net), device="cpu")
+        assert type(seq) is sm.MODEL_REGISTRY[net]
     with pytest.raises(ValueError):
-        sm.build_model(case["cfg"].replace(rep_net="CNN"), device="cpu")
+        sm.build_model(case["cfg"].replace(rep_net="GIN"), device="cpu")
 
 
 @pytest.mark.parametrize("train", [False, True])
