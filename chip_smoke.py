@@ -139,13 +139,18 @@ Phases (any failure raises and the script exits non-zero):
              network a bsz-16 batch on the card against the CPU (phase
              14's checks; CNN's edge-weight targets refined to 518), the
              train step at bsz 128 and the eval forward at 512 (events,
-             device ms, peak memory), one train step with pred_with_deg
-             (K3's 4 degree tables per chunk against k3_launches, the
-             only K3 launches of these networks), the reference's ER
+             device ms, peak memory), pred_with_deg at bsz 128 (K3's
+             degree tables, the only K3 launches of these networks: the
+             tables, the forward and every gradient on the card against
+             the CPU in f32, and one train step's launches, 4 per chunk,
+             against k3_launches), the reference's ER
              command line with its --rep_net for one epoch on phase 12's
              data, cli/scm_evaluate and a finetune onto a 2-label vertex
              vocabulary (no K3 launch derived, none made); and a
              bidirectional GRU at the same size, card against CPU once.
+             Before them, K3 against its plain version at the degree
+             tables' shape (65,536 tuple rows of one column into 8,192
+             node rows), timed beside it, one index_add_ and its bound.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -170,7 +175,8 @@ the other two), K2 at the path's W = 101 ("_w50"), K3 at the SCM train
 step's f32 H = 64 shape (the other three as "_bfloat16_h64", ...; the
 bench's largest size as "_bench"; phase 14's relation fold and LRP pool
 as "_rel_fold", "_lrp_pool" and their "_bfloat16" twins; phase 15's
-degree steps as "launches_scm_seq_deg_step"), K4 at the
+degree tables as "_edgeseq_deg", its degree steps' launches as
+"launches_scm_seq_deg_step"), K4 at the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
 The last line is
@@ -1506,9 +1512,10 @@ def scm_loss_and_grads(model, batch, amp):
     return preds, losses["total"].item(), grads, launches
 
 
-def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ) -> dict:
+def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
+                    amps=(False, True)) -> dict:
     """One flagship batch (bsz 128) on the card and on the CPU, f32 and
-    amp bf16: pred_c/pred_v/pred_e, the loss and every gradient; K3's
+    (amps) amp bf16: pred_c/pred_v/pred_e, the loss and every gradient; K3's
     launches of the card's forward and backward against the derived
     count. The amp loss: DMPNN's within 1e-3 relative of the CPU's; the
     other networks' under the amp rule of the gradients (phase 5's:
@@ -1522,7 +1529,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ) -> dict:
     card = copy.deepcopy(model).to(dev)
     dev_batch = [x.to(dev) for x in batch]
     res = {}
-    for amp in (False, True):
+    for amp in amps:
         res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
         res[("card", amp)] = scm_loss_and_grads(card, dev_batch, amp)
         torch.cuda.synchronize()
@@ -1530,7 +1537,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ) -> dict:
     f32_out, f32_loss, f32_grads, _ = res[("cpu", False)]
     gmax = max(g.abs().max().item() for g in f32_grads.values())
     worst = {}
-    for amp in (False, True):
+    for amp in amps:
         (po, lc, gc, lcpu), (pd, ld, gd, lcard) = res[("cpu", amp)], \
             res[("card", amp)]
         name = "amp bf16" if amp else "f32"
@@ -1578,7 +1585,8 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ) -> dict:
             extra = (f"; L2 to cpu f32: card {l2_card:.3e}, cpu amp "
                      f"{l2_cpu:.3e}")
         worst[name] = ratio
-        print(f"scm {cfg.rep_net} grads {name}: bsz {bsz}, loss card "
+        deg = " pred_with_deg" if cfg.pred_with_deg else ""
+        print(f"scm {cfg.rep_net}{deg} grads {name}: bsz {bsz}, loss card "
               f"{ld:.7f} cpu {lc:.7f}; {'/'.join(po)} and {len(gc)} "
               f"gradients within bound (worst at {ratio:.3f} of it){extra}; "
               f"K3 launches {lcard}")
@@ -2082,11 +2090,37 @@ def scm_net_cli(net: str, cli, root: str, extra=()) -> dict:
     return paths
 
 
-def scm_deg_step(cfg, dev, seed) -> dict:
-    """One train step (make_train_step at bsz 128, f32) of cfg, which
-    has pred_with_deg: K3's launches counted from zero against the
-    derived count, its 4 degree tables per chunk -> the launches."""
-    batch = [x.to(dev) for x in scm_batch(SCM_BSZ, seed, cfg)]
+def scm_k3_deg_shape(dev, seed) -> dict:
+    """K3 at the sequence networks' one call shape, pred_with_deg's
+    degree tables at the train step's bsz 128: the graph's 65,536 tuple
+    rows, one column, into 128 x 64 node rows at their u (the
+    out-degrees), the batch's own flat index; f32, the tables' dtype."""
+    _, graph = scm_make_batch(SCM_BSZ, 8, 8, 64, 256, 16, 16, seed=seed,
+                              edgeseq=True)
+    flat = scm_ops.flat_index(graph.u, graph.num_nodes, graph.mask)
+    return k3_timed("edgeseq degrees", flat.to(dev),
+                    SCM_BSZ * graph.num_nodes, 1, torch.float32, dev,
+                    np.random.default_rng(seed))
+
+
+def scm_deg_step(cfg, dev, seed) -> tuple:
+    """cfg has pred_with_deg. On the train step's batch (bsz 128): the
+    pattern's and the graph's degree tables on the card (K3) equal the
+    CPU's (integer counts, exactly); the outputs, the loss and every
+    gradient on the card against the CPU in f32 (scm_card_vs_cpu, with
+    K3's 4 launches of the forward as derived); then one train step
+    (make_train_step, f32), K3's launches counted from zero against the
+    derived count, its 4 degree tables per chunk -> (launches, worst)."""
+    batch = scm_batch(SCM_BSZ, seed, cfg)
+    for name, seq in zip(("pattern", "graph"), batch[:2]):
+        card = seq.to(dev)
+        for fn in ("out_degrees", "in_degrees"):
+            got, want = getattr(card, fn)().cpu(), getattr(seq, fn)()
+            check(torch.equal(got, want),
+                  f"SCM {cfg.rep_net} {name} {fn}: the card's differ from "
+                  f"the CPU's by {(got - want).abs().max().item()}")
+    worst = scm_card_vs_cpu(cfg, dev, seed, SCM_BSZ, amps=(False,))
+    batch = [x.to(dev) for x in batch]
     model = scm_model(cfg, seed).to(dev)
     step = scm_driver.make_train_step(
         model, scm_driver.make_optimizer(model.parameters(), 1e-3),
@@ -2101,22 +2135,24 @@ def scm_deg_step(cfg, dev, seed) -> dict:
           f"expected {want}")
     check(np.isfinite(losses["total"].item()),
           f"SCM {cfg.rep_net} pred_with_deg step: loss")
-    print(f"scm {cfg.rep_net} pred_with_deg step: loss "
-          f"{losses['total'].item():.6f}, K3 launches {launches} (derived "
-          f"{want})")
-    return launches
+    print(f"scm {cfg.rep_net} pred_with_deg step: degree tables equal "
+          f"the CPU's; loss {losses['total'].item():.6f}, K3 launches "
+          f"{launches} (derived {want})")
+    return launches, worst
 
 
 def phase_scm_seq(dev, seed, data_dir) -> tuple:
-    """Phase 15: per SCM sequence network (SEQ_NETS) at the flagship's
-    configuration, a bsz-16 batch on the card against the CPU (phase
-    14's checks), the train step at bsz 128 and the eval forward at 512,
-    one pred_with_deg train step (K3's degree tables), and the ER command
+    """Phase 15: K3 at the degree tables' shape; then per SCM sequence
+    network (SEQ_NETS) at the flagship's configuration, a bsz-16 batch
+    on the card against the CPU (phase 14's checks), the train step at
+    bsz 128 and the eval forward at 512, pred_with_deg at bsz 128 (the
+    degree tables, the forward and the gradients on the card against
+    the CPU, and one train step's K3 launches), and the ER command
     line with its --rep_net for one epoch on phase 12's data (data_dir),
     cli/scm_evaluate and a finetune; then a bidirectional GRU on the card
     against the CPU -> (results, paths)."""
     t0 = time.perf_counter()
-    out, paths = {}, {}
+    out, paths = {"k3_deg": scm_k3_deg_shape(dev, seed)}, {}
     root = tempfile.mkdtemp(prefix="scm_seq_")
     cli = SCM_CLI_ER + ["--synthetic", "True", "--synthetic_pairs",
                         str(SCM_CLI_PAIRS), "--seed", str(seed),
@@ -2127,12 +2163,13 @@ def phase_scm_seq(dev, seed, data_dir) -> tuple:
         worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
                             train_bszs=(SCM_BSZ,))
-        deg = scm_deg_step(cfg.replace(pred_with_deg=True), dev,
-                           seed + 10 * i + 2)
+        deg, deg_worst = scm_deg_step(cfg.replace(pred_with_deg=True), dev,
+                                      seed + 10 * i + 2)
         paths[f"scm_{net}_pred_with_deg_step"] = deg
         extra = [a for k, v in kw.items() for a in (f"--{k}", str(v))]
         paths.update(scm_net_cli(net, cli, root, extra))
         out[net] = dict(worst=worst, timing=timing, deg_step=deg,
+                        deg_worst=deg_worst,
                         step_launches=k3_launches(cfg, train=True))
         print(f"scm seq: {net} took {time.perf_counter() - t1:.1f} s")
     cfg = scm_flagship_config().replace(**SEQ_GRU)
@@ -2233,7 +2270,9 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
     k3["launches_scm_nets_step"] = {net: scm_nets[net]["step_launches"]
                                     for net in SCM_NETS}
     # phase 15: the sequence networks launch K3 for pred_with_deg's
-    # degree tables only
+    # degree tables only, at one call shape
+    k3.update(times(scm_seq["k3_deg"], "_edgeseq_deg"))
+    k3["max_abs_err"] = max(k3["max_abs_err"], scm_seq["k3_deg"]["err"])
     k3["launches_scm_seq_deg_step"] = {
         net: scm_seq[net]["deg_step"].get("segment_sum_unsorted", 0)
         for net in SEQ_NETS}

@@ -19,14 +19,18 @@ to bf16 (cast_floats) and promoted back. The port does the same: under
 a bf16 `dtype` the forward runs on its parameters rounded to bf16 and
 back to float32 (the rounding passes the gradient, rounded to bf16, to
 the float32 masters), and each parameter is cast to its input's dtype
-at use, as everywhere in the port.
+at use, as everywhere in the port. The rounding is done once for the
+whole model, not at use: casting at use casts to the input's dtype,
+float32 here after the gates, and rounds nothing, and rounding at use
+would take the amp dtype into every consumer of a parameter, the
+predict nets and layers shared with the graph networks among them.
 
 Parameters keep the flax paths (g_rep_net.cnn_0.conv.kernel [k, in,
 out], g_rep_net.rnn_1.OptimizedLSTMCell_0.hf.kernel [h, h] and .bias,
 g_rep_net.attn_0.q_kernel, ...), so models/scm_models.params_from_flax
 takes a JAX model's tree without a table of names. The recurrences do
-not loop in Python: each call builds the cuDNN weight list from the flax
-kernels (torch.lstm / torch.gru / torch.rnn_tanh, one layer, batch
+not loop in Python: each call builds the cuDNN weight buffer from the
+flax kernels (torch.lstm / torch.gru / torch.rnn_tanh, one layer, batch
 first). A bidirectional RNN runs its backward direction over the whole
 padded sequence, pad steps first, as flax's nn.Bidirectional without
 seq_lengths does (no packed sequences).
@@ -120,7 +124,6 @@ class EdgeSeqModel(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg
-        self._rounded = False
         self.g_enc_net = EdgeSeqEncNet(cfg, "graph")
         self.p_enc_net = (None if cfg.share_enc_net
                           else EdgeSeqEncNet(cfg, "pattern"))
@@ -176,21 +179,22 @@ class EdgeSeqModel(nn.Module):
 
     def forward(self, pattern: EdgeSeqBatch, graph: EdgeSeqBatch,
                 train: bool = False, dtype: torch.dtype = torch.float32,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, Any]:
-        if dtype == torch.float32 or self._rounded:
+                generator: Optional[torch.Generator] = None,
+                params_rounded: bool = False) -> Dict[str, Any]:
+        """Under a `dtype` other than float32 the forward runs again on
+        the parameters rounded to it (functional_call, params_rounded),
+        which are used in float32 where the float32 gates promote (the
+        module docstring)."""
+        if dtype == torch.float32 or params_rounded:
             return self._forward(pattern, graph, train, dtype, generator)
-        # amp: the parameters' values in `dtype`, used in float32 where the
-        # float32 gates promote (the module docstring)
-        rounded = {k: p.to(dtype).float()
-                   for k, p in self.named_parameters()}
-        self._rounded = True
-        try:
-            return functional_call(self, rounded, (pattern, graph),
-                                   dict(train=train, dtype=dtype,
-                                        generator=generator))
-        finally:
-            self._rounded = False
+        # all parameters in one buffer: one cast each way for the model
+        names, params = zip(*self.named_parameters())
+        flat = torch.cat([p.reshape(-1) for p in params]).to(dtype).float()
+        rounded = {k: v.view_as(p) for k, p, v in zip(
+            names, params, flat.split([p.numel() for p in params]))}
+        return functional_call(self, rounded, (pattern, graph), dict(
+            train=train, dtype=dtype, generator=generator,
+            params_rounded=True))
 
     def _forward(self, pattern, graph, train, dtype, generator):
         cfg = self.cfg
@@ -466,7 +470,7 @@ class RNNCell(nn.Module):
                                         use_bias=bias, init="uniform",
                                         generator=generator))
 
-    def weights(self, dtype: torch.dtype) -> List[torch.Tensor]:
+    def weights(self) -> List[torch.Tensor]:
         """[w_ih, w_hh, b_ih, b_hh] of torch's RNN functions: the gate
         kernels transposed and stacked in torch's gate order (LSTM i, f,
         g, o; GRU r, z, n), a missing bias zero."""
@@ -479,7 +483,7 @@ class RNNCell(nn.Module):
             out.append(torch.cat([
                 p.bias if p.bias is not None else p.kernel.new_zeros(self.hid)
                 for p in parts]))
-        return [w.to(dtype).contiguous() for w in out]
+        return out
 
 
 class RNNLayer(nn.Module):
@@ -508,8 +512,18 @@ class RNNLayer(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 update_stats: bool = True) -> torch.Tensor:
         x = x.contiguous()
-        weights = [w for c in self.cells
-                   for w in getattr(self, c).weights(x.dtype)]
+        # one buffer in cuDNN's layout, the matrices of each direction
+        # (w_ih, w_hh), then their biases: cuDNN takes views into it as
+        # they are, and compacts any other weight list at every call
+        cells = [getattr(self, c).weights() for c in self.cells]
+        parts = [w for ws in cells for w in ws[:2]] + \
+            [b for ws in cells for b in ws[2:]]
+        flat = torch.cat([p.reshape(-1) for p in parts]).to(x.dtype)
+        views = [v.view(p.shape) for p, v in zip(
+            parts, flat.split([p.numel() for p in parts]))]
+        mats, biases = views[:2 * len(cells)], views[2 * len(cells):]
+        weights = [w for d in range(0, len(mats), 2)
+                   for w in mats[d:d + 2] + biases[d:d + 2]]
         h0 = x.new_zeros((len(self.cells), x.shape[0], self.hid))
         hx = (h0, h0) if self.rnn_type == "LSTM" else h0
         # `train` of torch's RNN functions: cuDNN keeps what its backward

@@ -749,7 +749,8 @@ def test_graph_network_train_step_card_matches_cpu(cuda, net):
     ("CNN", {}), ("RNN", {}),
     ("RNN", dict(rep_rnn_type="GRU", rep_rnn_bidirectional=True)),
     ("TXL", {})], ids=["CNN", "LSTM", "GRU-bi", "TXL"])
-def test_sequence_network_train_step_card_matches_cpu(cuda, net, kw):
+def test_sequence_network_train_step_card_matches_cpu(cuda, monkeypatch, net,
+                                                     kw):
     """Each SCM sequence network at the flagship's width with
     pred_with_deg on a small batch (B = 4, graph 64 V / 256 E with
     reversed edges: 512 tuples, 3 + 3 layers; cuDNN's conv and RNN with
@@ -768,7 +769,7 @@ def test_sequence_network_train_step_card_matches_cpu(cuda, net, kw):
     from dualmessagepassing_tpu_torch.train.losses import scm_loss
     from dualmessagepassing_tpu_torch.train.scm_driver import (
         apply_model, make_optimizer, make_train_step, refine_weights)
-    torch.backends.cudnn.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     rng = np.random.default_rng(19)
     sides = []
     for v, e in ((8, 8), (64, 256)):
@@ -815,3 +816,31 @@ def test_sequence_network_train_step_card_matches_cpu(cuda, net, kw):
     for k in gc:
         bound = 1e-4 * gc[k].abs().max().item() + 1e-5 * gmax
         assert (gg[k] - gc[k]).abs().max().item() <= bound, k
+
+
+@pytest.mark.parametrize("rnn_type", ["LSTM", "GRU", "RNN"])
+@pytest.mark.parametrize("bidirectional", [False, True])
+def test_rnn_layer_weights_reach_cudnn_in_its_layout(cuda, monkeypatch,
+                                                     rnn_type, bidirectional):
+    """models/edgeseq.RNNLayer's weight buffer is cuDNN's layout: cuDNN
+    takes it without compacting it (no warning), and the layer's output
+    and input gradient on the card equal the CPU's (f32, TF32 off: 1e-4
+    of each tensor's largest magnitude)."""
+    import warnings
+    from dualmessagepassing_tpu_torch.models.edgeseq import RNNLayer
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    layer = RNNLayer(32, 32, rnn_type, bidirectional,
+                     generator=torch.Generator().manual_seed(5))
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(4, 24, 32)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        xd = x.to(dev, copy=True).requires_grad_()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            y = layer.to(dev)(xd)
+            (y * y).sum().backward()
+        assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+        out[str(dev)] = (y.detach().cpu(), xd.grad.cpu())
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert (got - want).abs().max() <= 1e-4 * want.abs().max()
