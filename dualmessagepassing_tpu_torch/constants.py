@@ -1,5 +1,7 @@
 """Numeric constants read by the port (dualmessagepassing_tpu/constants.py)."""
 
+# the reference's INF: an attention's masked keys score -_INF
+_INF = 1e30
 # Negative slope of the reference's LeakyReLU (constants.py:LEAKY_RELU_A).
 LEAKY_RELU_A = 1.0 / 5.5
 

@@ -38,9 +38,9 @@ class ModelConfig:
     """Flattened model configuration (the reference's flags, config.py),
     field for field the JAX package's, so a config translates with
     ModelConfig(**dataclasses.asdict(jax_config)). Sizes are model-facing
-    (after the reversed-edge doubling, train.py:38-65). The attention
-    predict nets' fields (pred_infer_steps, pred_num_heads,
-    pred_mem_len, pred_mem_init) are carried and unused."""
+    (after the reversed-edge doubling, train.py:38-65). The memory
+    predict nets' fields (pred_mem_len, pred_mem_init) are carried and
+    unused."""
 
     max_ngv: int
     max_ngvl: int
@@ -238,7 +238,8 @@ class GraphAdjModelV2(nn.Module):
                           else self.make_rep_net(generator))
         rep_v_dim, rep_e_dim = cfg.rep_dims()
         kw = dict(act=cfg.pred_act_func, dropout=cfg.pred_dropout,
-                  generator=generator)
+                  generator=generator, infer_steps=cfg.pred_infer_steps,
+                  num_heads=cfg.pred_num_heads)
         self.pred_net_v = self.pred_net_e = None
         if cfg.node_pred:
             self.pred_net_v = build_pred_net(
@@ -407,7 +408,8 @@ class GraphAdjModel(nn.Module):
             cfg.pred_net, cfg.rep_dims()[0], cfg.pred_hid_dim,
             act=cfg.pred_act_func, dropout=cfg.pred_dropout,
             return_weights="node" in cfg.pred_return_weights,
-            generator=generator)
+            generator=generator, infer_steps=cfg.pred_infer_steps,
+            num_heads=cfg.pred_num_heads)
 
     def make_rep_net(self, generator) -> nn.Module:
         raise NotImplementedError

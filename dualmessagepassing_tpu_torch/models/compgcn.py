@@ -27,14 +27,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, gather_scalars, scatter_sum_edges
 from ..utils.act import map_activation_str_to_fn
 from ..utils.init import calculate_gain, xavier_uniform
 from .basemodel import GraphAdjModelV2
-from .layers import MaskedBatchNorm, dropout
+from .layers import MaskedBatchNorm, dropout, remat
 
 EDGE_NORMS = ("none", "in", "out", "both")
 
@@ -108,11 +107,12 @@ class CompGCNLayer(nn.Module):
     def forward(self, graph: GraphBatch, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, train: bool = False,
                 norms: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """node_feat [B, V, Din], edge_feat [B, E, Din] -> ([B, V, H],
         [B, E, H]); norms from degree_norms (computed here when not
-        given)."""
+        given); update_stats as models/dmpnn.DMPLayer's."""
         dt = node_feat.dtype
         src_feat = gather_nodes(node_feat, graph.senders)       # backward K3
         comp = comp_func(src_feat, edge_feat, self.comp_opt)
@@ -145,8 +145,8 @@ class CompGCNLayer(nn.Module):
         if self.bn is not None:
             lead = out.shape[:-1]
             out = self.bn(out.reshape(-1, out.shape[-1]),
-                          graph.node_mask.reshape(-1), train).reshape(
-                              *lead, -1)
+                          graph.node_mask.reshape(-1), train,
+                          update_stats).reshape(*lead, -1)
         out = map_activation_str_to_fn(self.act)(out)
         out = dropout(out, self.dropout, train, generator)
         e_out = edge_feat @ self.rel_weight.to(edge_feat.dtype)
@@ -157,8 +157,7 @@ class CompGCNStack(nn.Module):
     """CompGCNLayers compgcn_0, compgcn_1, ... with the gate/mask multiply
     and the residual where shapes match (compgcn.py:323-385); remat=True
     recomputes each layer in the backward, as models/dmpnn.DMPNNStack
-    does (and is refused with BatchNorm or dropout for the same
-    reason)."""
+    does."""
 
     def __init__(self, num_layers: int, in_dim: int, hidden_dim: int,
                  comp_opt: str = "corr", edge_norm: str = "none",
@@ -167,9 +166,6 @@ class CompGCNStack(nn.Module):
                  remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat and (batch_norm or dropout > 0.0):
-            raise ValueError("remat recomputes each layer: it needs "
-                             "batch_norm off and dropout 0")
         self.num_layers = num_layers
         self.edge_norm = edge_norm
         self.residual = residual
@@ -192,8 +188,8 @@ class CompGCNStack(nn.Module):
         for i in range(self.num_layers):
             layer = getattr(self, f"compgcn_{i}")
             if self.remat and torch.is_grad_enabled():
-                v_new, e_new = checkpoint(layer, graph, v, e, train, norms,
-                                          use_reentrant=False)
+                v_new, e_new = remat(layer, graph, v, e, train, norms,
+                                     generator=generator)
             else:
                 v_new, e_new = layer(graph, v, e, train, norms, generator)
             if v_gate is not None:

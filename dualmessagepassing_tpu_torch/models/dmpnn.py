@@ -31,13 +31,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, gather_scalars, scatter_sum_edges
 from ..utils.act import map_activation_str_to_fn
 from ..utils.init import calculate_gain, scaled, xavier_uniform
-from .layers import UpdateMLP, dropout
+from .layers import UpdateMLP, dropout, remat
 
 
 class DMPLayer(nn.Module):
@@ -76,11 +75,13 @@ class DMPLayer(nn.Module):
     def forward(self, graph: GraphBatch, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, train: bool = False,
                 out_deg: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """node_feat [B, V, Din], edge_feat [B, E, Din] -> ([B, V, H],
         [B, E, H]) in node_feat's dtype; out_deg [B, V] float32 (computed
-        here when not given)."""
+        here when not given); update_stats=False leaves the BatchNorm
+        statistics as they are (a rematerialised layer's recomputation)."""
         h = self.hidden_dim
         dt = node_feat.dtype
         w_src, w_dst = self.src_weight.to(dt), self.dst_weight.to(dt)
@@ -105,7 +106,7 @@ class DMPLayer(nn.Module):
         if self.use_bias:
             v_out = v_out + self.nbias.to(dt)
         if self.nmlp is not None:
-            v_out = self.nmlp(v_out, mask=graph.node_mask, train=train)
+            v_out = self.nmlp(v_out, graph.node_mask, train, update_stats)
         else:
             v_out = map_activation_str_to_fn(self.act)(v_out)
         v_out = dropout(v_out, self.dropout, train, generator)
@@ -121,7 +122,7 @@ class DMPLayer(nn.Module):
         if self.use_bias:
             e_out = e_out + self.ebias.to(dt)
         if self.emlp is not None:
-            e_out = self.emlp(e_out, mask=e_mask, train=train)
+            e_out = self.emlp(e_out, e_mask, train, update_stats)
         else:
             e_out = map_activation_str_to_fn(self.act)(e_out)
         e_out = dropout(e_out, self.dropout, train, generator)
@@ -134,10 +135,9 @@ class DMPNNStack(nn.Module):
     get_graph_rep, dmpnn.py:215-277): inputs are gated before the first
     layer, every layer's output is gated again.
 
-    remat=True recomputes each layer in the backward
-    (torch.utils.checkpoint, use_reentrant=False), as jax.checkpoint
-    does; it is refused with BatchNorm or dropout, whose recomputation
-    would update the running statistics twice or draw another mask.
+    remat=True recomputes each layer in the backward, as the JAX
+    package's nn.remat does (models/layers.remat: the same dropout masks,
+    the BatchNorm statistics updated once).
     """
 
     def __init__(self, num_layers: int, in_dim: int, hidden_dim: int,
@@ -148,9 +148,6 @@ class DMPNNStack(nn.Module):
                  remat: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat and (batch_norm or dropout > 0.0):
-            raise ValueError("remat recomputes each layer: it needs "
-                             "batch_norm off and dropout 0")
         self.num_layers = num_layers
         self.residual = residual
         self.remat = remat
@@ -173,8 +170,8 @@ class DMPNNStack(nn.Module):
         for i in range(self.num_layers):
             layer = getattr(self, f"dmpnn_{i}")
             if self.remat and torch.is_grad_enabled():
-                v_new, e_new = checkpoint(layer, graph, v, e, train, out_deg,
-                                          use_reentrant=False)
+                v_new, e_new = remat(layer, graph, v, e, train, out_deg,
+                                     generator=generator)
             else:
                 v_new, e_new = layer(graph, v, e, train, out_deg, generator)
             if v_gate is not None:

@@ -45,7 +45,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from ..graph import EdgeSeqBatch
 from ..ops.encoding import get_enc_len, position_table
@@ -54,7 +53,7 @@ from ..utils.init import calculate_gain, kaiming_normal
 from .basemodel import ModelConfig
 from .embed import Embedding, MultihotEncoder, PositionEncoder
 from .filter import scalar_filter
-from .layers import Dense, MaskedBatchNorm, dropout
+from .layers import Dense, LayerNorm, MaskedBatchNorm, dropout, remat
 from .pred import build_pred_net
 
 _FIELDS = ("u", "v", "ul", "el", "vl")
@@ -145,7 +144,8 @@ class EdgeSeqModel(nn.Module):
             cfg.pred_net, width("graph"), cfg.pred_hid_dim,
             act=cfg.pred_act_func, dropout=cfg.pred_dropout,
             return_weights="edge" in cfg.pred_return_weights,
-            generator=generator, p_rep_dim=width("pattern"))
+            generator=generator, p_rep_dim=width("pattern"),
+            infer_steps=cfg.pred_infer_steps, num_heads=cfg.pred_num_heads)
 
     def make_rep_net(self, generator) -> nn.Module:
         raise NotImplementedError
@@ -254,30 +254,6 @@ class EdgeSeqModel(nn.Module):
             "g_v_mask": None, "g_e_mask": g_e_mask,
             "pred_c": pred_c, "pred_v": None, "pred_e": pred_e,
         }
-
-
-def _remat(layer: nn.Module, x: torch.Tensor, *args) -> torch.Tensor:
-    """layer(x, *args) recomputed in the backward (torch.utils.checkpoint,
-    non-reentrant), as the JAX package's nn.remat. The recomputation runs
-    on the parameter tensors of the forward (under amp the rounded ones,
-    which EdgeSeqModel.forward puts in place only while it runs) and does
-    not update the running BatchNorm statistics a second time."""
-    params = dict(layer.named_parameters())
-    first = [True]
-
-    def run(x):
-        update, first[0] = first[0], False
-        return functional_call(layer, params, (x, *args),
-                               {"update_stats": update})
-
-    return checkpoint(run, x, use_reentrant=False)
-
-
-def _check_remat(cfg: ModelConfig) -> None:
-    if cfg.rep_remat and cfg.rep_dropout > 0.0:
-        raise ValueError("rep_remat recomputes each layer: it needs "
-                         "rep_dropout 0 (the recomputation would draw "
-                         "another dropout mask)")
 
 
 # =============================================================================
@@ -392,7 +368,6 @@ class CNNStack(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_remat(cfg)
         self.cfg = cfg
         self.geometry = cnn_geometry(cfg)
         for i, (k, p, s, _) in enumerate(self.geometry):
@@ -412,7 +387,7 @@ class CNNStack(nn.Module):
                 g = max_pool1d(max_pool1d(g, k, s, p), pk, 1, p)
             m = None if g is None else g[..., 0] > 0
             if self.cfg.rep_remat and torch.is_grad_enabled():
-                o = _remat(layer, x, m, train, generator)
+                o = remat(layer, x, m, train, generator=generator)
             else:
                 o = layer(x, m, train, generator)
             if g is not None:
@@ -536,22 +511,6 @@ class RNNLayer(nn.Module):
         return dropout(o, self.dropout, train, generator)
 
 
-class LayerNorm(nn.Module):
-    """flax nn.LayerNorm over the last axis: epsilon 1e-6, statistics in
-    float32, parameters "scale" and "bias"."""
-
-    def __init__(self, features: int, eps: float = 1e-6):
-        super().__init__()
-        self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
-                         self.eps)
-        return y.to(x.dtype)
-
-
 class RNNStack(nn.Module):
     """The recurrent stack (reference rnn.py:60-124): the pattern (mask
     only) takes no residual, the graph (gate) does, where the shapes
@@ -560,7 +519,6 @@ class RNNStack(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _check_remat(cfg)
         self.cfg = cfg
         for i in range(cfg.rep_num_graph_layers):
             self.add_module(f"rnn_{i}", RNNLayer(
@@ -577,7 +535,7 @@ class RNNStack(nn.Module):
         for i in range(cfg.rep_num_graph_layers):
             layer = getattr(self, f"rnn_{i}")
             if cfg.rep_remat and torch.is_grad_enabled():
-                o = _remat(layer, x, train, generator)
+                o = remat(layer, x, train, generator=generator)
             else:
                 o = layer(x, train, generator)
             if g is not None:

@@ -1,6 +1,7 @@
 """Shared building blocks (dualmessagepassing_tpu/models/layers.py):
 the init-by-name Dense (21-65), MaskedBatchNorm (68-124), the update
-MLP of the GNN layers (127-150), and flax's Dropout.
+MLP of the GNN layers (127-150), flax's Dropout and LayerNorm, and the
+rematerialisation of a rep-net layer (flax's nn.remat).
 
 Parameters keep flax's names and JAX's [in, out] kernel layout (x @ W),
 so a flax tree copies across (models/scm_models.params_from_flax). Each
@@ -13,7 +14,10 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.act import map_activation_str_to_fn
 from ..utils.init import get_initializer
@@ -142,7 +146,8 @@ class UpdateMLP(nn.Module):
                 self.add_module(f"bn{i}", MaskedBatchNorm(features))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"fc{i}")(x)
             if i != self.num_layers - 1:
@@ -152,6 +157,57 @@ class UpdateMLP(nn.Module):
                     m = (torch.ones(lead, dtype=torch.bool, device=x.device)
                          if mask is None else mask)
                     x = bn(x.reshape(-1, x.shape[-1]), m.reshape(-1),
-                           train).reshape(x.shape)
+                           train, update_stats).reshape(x.shape)
                 x = self.act_fn(x)
         return x
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis: epsilon 1e-6, statistics in
+    float32, parameters "scale" and "bias"."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
+                         self.eps)
+        return y.to(x.dtype)
+
+
+def remat(layer: nn.Module, *args,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """layer(*args, generator=generator, update_stats=...) recomputed in
+    the backward (torch.utils.checkpoint, non-reentrant), as the JAX
+    package's nn.remat, with dropout and BatchNorm: the recomputation
+    computes what the forward computed.
+
+      * It runs on the parameter tensors of the forward (under amp the
+        rounded ones, which EdgeSeqModel.forward puts in place only while
+        it runs).
+      * It does not update the running BatchNorm statistics a second time
+        (update_stats=False).
+      * Its dropout masks are the forward's: it draws from a replay
+        generator, a new one on `generator`'s device in the state
+        `generator` had just before the forward. The live generator is
+        never rewound, so it ends the step where the plain run ends it.
+        Without a generator the masks come from the global RNG, whose
+        state checkpoint itself preserves.
+    """
+    params = dict(layer.named_parameters())
+    state = None if generator is None else generator.get_state()
+    first = [True]
+
+    def run(*args):
+        gen = generator
+        if not first[0] and generator is not None:
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        update, first[0] = first[0], False
+        return functional_call(layer, params, args,
+                               {"generator": gen, "update_stats": update})
+
+    return checkpoint(run, *args, use_reentrant=False)

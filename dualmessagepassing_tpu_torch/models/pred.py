@@ -15,7 +15,8 @@ exists; the parameters are those of the concatenation. The true lengths
 pl, gl are summed in float32 and then cast to the compute dtype (bf16
 cannot count above 256). Pooling: sum (masked), mean (sum over the
 batch's largest true length, the reference's padded length) or max
-(padding at 0). The attention and memory variants (pred_attn.py) are not
+(padding at 0). The attention variants (models/pred_attn.py) transform
+the graph's rows first (pre_transform); the memory variants are not
 ported.
 """
 
@@ -60,6 +61,12 @@ class PredictNet(nn.Module):
     def agg(self, rep, mask, max_len):
         raise NotImplementedError
 
+    def pre_transform(self, p_rep, p_mask, g_rep, g_mask, train=False,
+                      generator=None):
+        """The attention variants' hook: g_rep before the pooling
+        (pred.py:48-51). Here the identity."""
+        return g_rep
+
     def forward(self, p_rep: torch.Tensor, p_mask: torch.Tensor,
                 g_rep: torch.Tensor, g_mask: torch.Tensor,
                 train: bool = False,
@@ -67,6 +74,8 @@ class PredictNet(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """p_rep [B, Lp, D] (or a pooled [B, h]), g_rep [B, Lg, D], masks
         bool -> (count [B, 1], weights [B, Lg] or None) in g_rep's dtype."""
+        g_rep = self.pre_transform(p_rep, p_mask, g_rep, g_mask, train,
+                                   generator)
         dt = g_rep.dtype
         pl = p_mask.float().sum(1, keepdim=True).to(dt)      # [B, 1]
         gl = g_mask.float().sum(1, keepdim=True).to(dt)
@@ -118,16 +127,31 @@ PRED_NETS = {
 }
 
 
+# the JAX package's memory predict nets (pred_attn.py:346-535)
+MEM_PRED_NETS = ("MeanMemAttnPredictNet", "SumMemAttnPredictNet",
+                 "MaxMemAttnPredictNet", "DIAMNet")
+
+
 def build_pred_net(name: str, rep_dim: int, hidden_dim: int, act: str,
                    dropout: float, return_weights: bool,
                    generator: Optional[torch.Generator] = None,
-                   p_rep_dim: Optional[int] = None, **kw) -> PredictNet:
-    """create_pred_net (basemodel.py:1074-1366) for the pooling nets; the
-    extra options of the attention variants (infer_steps, num_heads,
-    mem_len, mem_init) are accepted and unused. p_rep_dim is the
-    pattern rep's width where it is not rep_dim."""
-    if name not in PRED_NETS:
-        raise ValueError(f"unknown or unported pred_net '{name}'")
-    return PRED_NETS[name](rep_dim, hidden_dim, act=act, dropout=dropout,
-                           return_weights=return_weights,
-                           generator=generator, p_rep_dim=p_rep_dim)
+                   p_rep_dim: Optional[int] = None, infer_steps: int = 1,
+                   num_heads: int = 4) -> PredictNet:
+    """create_pred_net (basemodel.py:1074-1366): the pooling nets, and
+    the attention nets (models/pred_attn.py) with their infer_steps and
+    num_heads, which the pooling nets ignore. p_rep_dim is the pattern
+    rep's width where it is not rep_dim."""
+    from .pred_attn import ATTN_PRED_NETS   # it subclasses the nets here
+
+    kw = dict(act=act, dropout=dropout, return_weights=return_weights,
+              generator=generator, p_rep_dim=p_rep_dim)
+    if name in PRED_NETS:
+        return PRED_NETS[name](rep_dim, hidden_dim, **kw)
+    if name in ATTN_PRED_NETS:
+        return ATTN_PRED_NETS[name](rep_dim, hidden_dim, **kw,
+                                    infer_steps=infer_steps,
+                                    num_heads=num_heads)
+    if name in MEM_PRED_NETS:
+        raise ValueError(f"pred_net '{name}' is not ported yet: the memory "
+                         "predict nets come with slice D2b-ii of the port")
+    raise ValueError(f"unknown pred_net '{name}'")

@@ -35,7 +35,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..graph import GraphBatch
 from ..ops.scatter import gather_nodes, scatter_sum_edges
@@ -43,7 +42,7 @@ from ..utils.act import map_activation_str_to_fn
 from ..utils.init import calculate_gain, xavier_uniform
 from .basemodel import GraphAdjModel
 from .compgcn import EDGE_NORMS, degree_norms
-from .layers import MaskedBatchNorm, UpdateMLP, dropout
+from .layers import MaskedBatchNorm, UpdateMLP, dropout, remat
 
 
 def relation_sums(graph: GraphBatch, src: torch.Tensor,
@@ -147,7 +146,8 @@ class RGCNLayer(nn.Module):
     def forward(self, graph: GraphBatch, node_feat: torch.Tensor,
                 train: bool = False,
                 norms: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True) -> torch.Tensor:
         if norms is None:
             norms = degree_norms(graph, self.edge_norm, self.self_loop)
         innorm, outnorm = norms.get("in"), norms.get("out")
@@ -175,8 +175,8 @@ class RGCNLayer(nn.Module):
         if self.bn is not None:
             lead = out.shape[:-1]
             out = self.bn(out.reshape(-1, out.shape[-1]),
-                          graph.node_mask.reshape(-1), train).reshape(
-                              *lead, -1)
+                          graph.node_mask.reshape(-1), train,
+                          update_stats).reshape(*lead, -1)
         out = map_activation_str_to_fn(self.act)(out)
         return dropout(out, self.dropout, train, generator)
 
@@ -203,14 +203,15 @@ class RGINLayer(nn.Module):
 
     def forward(self, graph: GraphBatch, node_feat: torch.Tensor,
                 train: bool = False, norms=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                update_stats: bool = True) -> torch.Tensor:
         out = relation_agg(graph, node_feat, self.rel_weights)
         if self.loop_weight is not None:
             out = out + node_feat @ self.loop_weight.to(node_feat.dtype)
         if self.bias is not None:
             out = out + self.bias.to(out.dtype)
         if self.mlp is not None:
-            out = self.mlp(out, mask=graph.node_mask, train=train)
+            out = self.mlp(out, graph.node_mask, train, update_stats)
         else:
             out = self.act_fn(out)
         out = self.act_fn(out)      # the second activation (rgin.py:151)
@@ -232,9 +233,6 @@ class RGNNStack(nn.Module):
         super().__init__()
         if kind not in ("rgcn", "rgin"):
             raise ValueError(f"kind {kind}")
-        if remat and (batch_norm or dropout > 0.0):
-            raise ValueError("remat recomputes each layer: it needs "
-                             "batch_norm off and dropout 0")
         self.kind = kind
         self.num_layers = num_layers
         self.edge_norm = edge_norm if kind == "rgcn" else "none"
@@ -261,8 +259,8 @@ class RGNNStack(nn.Module):
         for i in range(self.num_layers):
             layer = getattr(self, f"{self.kind}_{i}")
             if self.remat and torch.is_grad_enabled():
-                v_new = checkpoint(layer, graph, v, train, norms,
-                                   use_reentrant=False)
+                v_new = remat(layer, graph, v, train, norms,
+                              generator=generator)
             else:
                 v_new = layer(graph, v, train, norms, generator)
             if v_gate is not None:

@@ -844,3 +844,130 @@ def test_rnn_layer_weights_reach_cudnn_in_its_layout(cuda, monkeypatch,
         out[str(dev)] = (y.detach().cpu(), xd.grad.cpu())
     for got, want in zip(out[str(cuda)], out["cpu"]):
         assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+# --- the attention predict nets and the remat repair -----------------------
+
+def _flagship_pairs(rng, rep_net):
+    """B = 4 flagship pairs (pattern 8 V / 8 E, graph 64 V / 256 E, 16
+    labels, reversed edges) as GraphBatches or (CNN, RNN) EdgeSeqBatches,
+    and their targets (counts, node weights, edge weights)."""
+    from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
+                                                    batch_edgeseqs,
+                                                    batch_graphs,
+                                                    record_to_edgeseq,
+                                                    single_graph)
+    sides = []
+    for v, e in ((8, 8), (64, 256)):
+        recs = [add_reversed_edges(single_graph(
+            v, rng.integers(0, v, e), rng.integers(0, v, e),
+            rng.integers(0, 16, v), rng.integers(0, 16, e)), 16)
+            for _ in range(4)]
+        sides.append(batch_edgeseqs([record_to_edgeseq(r) for r in recs])
+                     if rep_net in ("CNN", "RNN") else batch_graphs(recs))
+    targets = [torch.from_numpy(rng.poisson(lam, shape).astype(np.float32))
+               for lam, shape in ((3.0, (4, 1)), (1.0, (4, 64)),
+                                  (1.0, (4, 512)))]
+    return sides, targets
+
+
+def _flagship_config(**kw):
+    from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
+    return ModelConfig(max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
+                       max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
+                       filter_net="ScalarFilter",
+                       pred_return_weights="nodeedge", **kw)
+
+
+def _loss_and_grads(cfg, dev, sides, targets, seed=2, generator=None):
+    """One train-mode forward (dropout from `generator`) and backward of
+    the flagship model from `seed` (its weights moved by N(0, 0.02)):
+    (loss, gradients on the CPU, running statistics, K3's launches)."""
+    from dualmessagepassing_tpu_torch.models.scm_models import build_model
+    from dualmessagepassing_tpu_torch.train.losses import scm_loss
+    from dualmessagepassing_tpu_torch.train.scm_driver import (
+        apply_model, refine_weights)
+    model = build_model(cfg, device=dev, seed=seed)
+    with torch.no_grad():
+        gen = torch.Generator().manual_seed(seed + 1)
+        for p in model.parameters():
+            p.add_((0.02 * torch.randn(p.shape, generator=gen)).to(dev))
+    batch = [s.to(dev) for s in sides] + [x.to(dev) for x in targets]
+    sk.reset_launch_counts()
+    losses = scm_loss(apply_model(model, *batch[:2], train=True,
+                                  generator=generator),
+                      batch[2], batch[3],
+                      refine_weights(model, "edge", batch[4]),
+                      neg_slope=0.2, match_loss_w=0.1, match_reg_w=0.05,
+                      rep_reg_w=1e-3)
+    losses["total"].backward()
+    torch.cuda.synchronize()
+    return (losses["total"].item(),
+            {k: p.grad.cpu() for k, p in model.named_parameters()
+             if p.grad is not None},
+            {k: b.cpu() for k, b in model.named_buffers() if "running" in k},
+            dict(sk.LAUNCHES))
+
+
+def _grads_close(got, want):
+    gmax = max(g.abs().max().item() for g in want.values())
+    assert set(got) == set(want)
+    for k in want:
+        bound = 1e-4 * want[k].abs().max().item() + 1e-5 * gmax
+        assert (got[k] - want[k]).abs().max().item() <= bound, k
+
+
+@pytest.mark.parametrize("pred_net, rep_net", [
+    ("MeanAttnPredictNet", "DMPNN"), ("SumAttnPredictNet", "DMPNN"),
+    ("MaxAttnPredictNet", "DMPNN"), ("MeanAttnPredictNet", "CNN")])
+def test_attention_predict_net_train_step_card_matches_cpu(
+        cuda, monkeypatch, pred_net, rep_net):
+    """An attention predict net at the flagship's width (4 heads,
+    sparsemax, one inference round) over DMPNN or CNN on a small batch:
+    the loss (1e-5 relative) and every parameter gradient (1e-4 of each
+    tensor's largest magnitude plus 1e-5 of the largest gradient) on the
+    card against the CPU; K3's launches those of the rep net alone
+    (models/scm_models.k3_launches)."""
+    from dualmessagepassing_tpu_torch.models.scm_models import k3_launches
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sides, targets = _flagship_pairs(np.random.default_rng(20), rep_net)
+    cfg = _flagship_config(rep_net=rep_net, pred_net=pred_net,
+                           pred_num_heads=4)
+    lc, gc, _, kc = _loss_and_grads(cfg, "cpu", sides, targets)
+    lg, gg, _, kg = _loss_and_grads(cfg, cuda, sides, targets)
+    want = k3_launches(cfg, train=True)
+    assert kc == {} and kg == ({"segment_sum_unsorted": want} if want
+                               else {})
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    _grads_close(gg, gc)
+
+
+@pytest.mark.parametrize("rep_net, kw", [
+    ("DMPNN", dict(rep_dmpnn_batch_norm=True)),
+    ("CompGCN", dict(rep_compgcn_batch_norm=True)),
+    ("CNN", {}), ("RNN", {})])
+def test_remat_with_dropout_on_the_card(cuda, monkeypatch, rep_net, kw):
+    """rep_remat with dropout 0.1 (a CUDA generator) and the family's
+    BatchNorm on the card, against the run without remat from the same
+    weights and generator seed: the generator's state after the step is
+    equal, the loss within 1e-5 relative, the gradients as above and the
+    running statistics within 1e-5 of each tensor's largest magnitude (K3
+    sums with float atomics, in another order at each launch)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sides, targets = _flagship_pairs(np.random.default_rng(21), rep_net)
+    runs = []
+    for remat in (False, True):
+        cfg = _flagship_config(rep_net=rep_net, rep_remat=remat,
+                               rep_dropout=0.1, **kw)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        start = gen.get_state()
+        runs.append(_loss_and_grads(cfg, cuda, sides, targets,
+                                    generator=gen) + (gen.get_state(),))
+        assert not torch.equal(start, gen.get_state())
+    (l0, g0, s0, _, r0), (l1, g1, s1, _, r1) = runs
+    assert torch.equal(r0, r1)
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    _grads_close(g1, g0)
+    assert set(s0) == set(s1) and (len(s0) > 0) == (rep_net != "RNN")
+    for k in s0:
+        assert (s1[k] - s0[k]).abs().max() <= 1e-5 * s0[k].abs().max(), k

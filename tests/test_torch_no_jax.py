@@ -36,7 +36,9 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     # the SCM graph networks
     "models.rgnn", "models.lrp", "data.lrp",
     # the SCM sequence networks
-    "models.edgeseq")]
+    "models.edgeseq",
+    # the attention predict nets
+    "models.pred_attn")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -91,18 +91,42 @@ def test_k3_calls_per_forward_and_step_equal_the_derived_count(
     assert len(calls) == sm.k3_launches(cfg, train=True)
 
 
-def test_remat_gives_the_same_gradients():
-    pats, gras = make_records(4, 4, 4, 12, 24, 4, 4, seed=6)
-    _, (tp, tgr) = batches(pats, gras)
-    grads = []
+def remat_matches_plain(cfg, tb, loss_fn, amp: bool = False, seed: int = 7):
+    """One train-mode forward and backward of cfg's model with rep_remat
+    off and on, the dropout masks drawn from a generator seeded alike:
+    the gradients agree within 1e-7, the running statistics and the
+    generator's state after the step are equal (the recomputation
+    replays the forward's masks and does not rewind the live generator),
+    and with dropout the step drew from the generator. -> the plain
+    run's (gradients, buffers)."""
+    runs = []
     for remat in (False, True):
-        m = sm.build_model(small_config(rep_remat=remat), device="cpu")
-        out = apply_model(m, tp, tgr, train=True)
-        (out["pred_c"].sum() + out["pred_e"].square().sum()).backward()
-        grads.append({k: p.grad for k, p in m.named_parameters()})
-    for k in grads[0]:
-        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=0,
-                                   atol=1e-7)
-    with pytest.raises(ValueError):
-        sm.build_model(small_config(rep_remat=True, rep_dropout=0.1),
-                       device="cpu")
+        m = sm.build_model(cfg.replace(rep_remat=remat), device="cpu")
+        gen = torch.Generator().manual_seed(seed)
+        start = gen.get_state()
+        loss_fn(apply_model(m, *tb, amp=amp, train=True,
+                            generator=gen)).backward()
+        runs.append(({k: p.grad for k, p in m.named_parameters()},
+                     {k: b.clone() for k, b in m.named_buffers()},
+                     gen.get_state()))
+    (g0, b0, r0), (g1, b1, r1) = runs
+    if cfg.rep_dropout > 0:
+        assert not torch.equal(r0, start), "no dropout mask was drawn"
+    assert torch.equal(r1, r0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=0, atol=1e-7)
+    for k in b0:
+        assert torch.equal(b1[k], b0[k]), k
+    return g0, b0
+
+
+def test_remat_gives_the_same_gradients():
+    """DMPNN with rep_remat against the plain stack: without dropout, and
+    with rep_dropout 0.1 and BatchNorm (statistics updated once)."""
+    pats, gras = make_records(4, 4, 4, 12, 24, 4, 4, seed=6)
+    _, tb = batches(pats, gras)
+    for kw in ({}, {"rep_dropout": 0.1, "rep_dmpnn_batch_norm": True}):
+        _, stats = remat_matches_plain(
+            small_config(**kw), tb, lambda out: out["pred_c"].sum()
+            + out["pred_e"].square().sum())
+    assert any(k.endswith("running_mean") for k in stats)

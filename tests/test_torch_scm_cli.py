@@ -145,18 +145,31 @@ def test_refused_at_parse_time(capsys):
 
 
 def test_attention_predict_nets_refused_at_parse_time(capsys):
-    """The JAX package's attention predict nets (models/pred_attn.py:
-    527-535) are refused before any data is built, naming slice D2b; the
+    """Of the JAX package's attention predict nets (models/pred_attn.py:
+    527-535) the three Attn nets parse and build; the four memory nets
+    are refused before any data is built, naming slice D2b-ii; the
     pooling nets parse."""
     from dualmessagepassing_tpu.models.pred_attn import ATTN_PRED_NETS
-    assert set(tcfg.ATTN_PRED_NETS) == set(ATTN_PRED_NETS)
-    for name in ATTN_PRED_NETS:
+    from dualmessagepassing_tpu_torch.models import pred as tpred
+    from dualmessagepassing_tpu_torch.models import pred_attn as tattn
+    assert set(ATTN_PRED_NETS) == set(tattn.ATTN_PRED_NETS) | set(
+        tpred.MEM_PRED_NETS)
+    for name in tpred.MEM_PRED_NETS:
         with pytest.raises(SystemExit):
             ttrain.main(TINY + ["--pred_net", name])
-        assert "slice D2b" in capsys.readouterr().err
-    for name in ("SumPredictNet", "MeanPredictNet", "MaxPredictNet"):
-        assert tcfg.get_train_config(["--pred_net", name])["pred_net"] == \
-            name
+        assert "slice D2b-ii" in capsys.readouterr().err
+        with pytest.raises(ValueError, match="D2b-ii"):
+            tpred.build_pred_net(name, 8, 6, "relu", 0.0, True)
+    for name in ["SumPredictNet", "MeanPredictNet", "MaxPredictNet",
+                 *tattn.ATTN_PRED_NETS]:
+        cfg = tcfg.get_train_config(TINY + ["--pred_net", name,
+                                            "--pred_num_heads", "2"])
+        assert cfg["pred_net"] == name
+        mcfg = tcfg.to_model_config(tcfg.process_model_config(cfg))
+        model = sm.build_model(mcfg, device="cpu")
+        attn = getattr(model.pred_net_v, "g_attn", None)
+        assert (attn is not None and attn.num_heads == 2) == (
+            name in tattn.ATTN_PRED_NETS)
 
 
 def test_gpu_id_minus_one_asks_for_cuda(tmp_path):

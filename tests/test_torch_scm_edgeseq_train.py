@@ -20,7 +20,8 @@ tests/test_torch_scm_edgeseq.py's batches and weights:
     script prints them).
   * K3's calls per forward and train step equal k3_launches (the 4
     degree tables with pred_with_deg, else none).
-  * rep_remat gives the same gradients and BatchNorm statistics.
+  * rep_remat gives the same gradients and BatchNorm statistics, with
+    and without dropout.
   * One make_train_step and one evaluate_epoch with match_weights edge
     against the JAX package's scm_driver, for CNN: the weight targets refined to the
     pooled length in the step (losses rtol 1e-5 / atol 1e-6, parameters
@@ -43,6 +44,7 @@ from dualmessagepassing_tpu_torch.models import scm_models as sm
 from dualmessagepassing_tpu_torch.ops import scatter as tsc
 from dualmessagepassing_tpu_torch.train import scm_driver as tdrv
 
+from test_torch_scm_amp import remat_matches_plain
 from test_torch_scm_edgeseq import seq_batches, seq_case, seq_config
 from test_torch_scm_ops import close_to_max
 from test_torch_scm_rep_nets import _jax_grads, amp_ratios
@@ -131,7 +133,10 @@ def test_remat_gives_the_same_gradients(net, kw):
     """rep_remat recomputes each CNN/RNN layer in the backward: the same
     gradients, in f32 and under amp (whose rounded parameters the
     recomputation uses too), and CNN's BatchNorm statistics updated
-    once."""
+    once; then with rep_dropout 0.1 the same masks in the recomputation
+    (tests/test_torch_scm_amp.remat_matches_plain: gradients,
+    statistics, the generator's state), and TXL, which the JAX package
+    does not rematerialise, trains with both set."""
     _, _, tb = seq_batches(4, 6)
     for amp in (False, True):
         grads, stats = [], []
@@ -161,9 +166,15 @@ def test_remat_gives_the_same_gradients(net, kw):
         for k in stats[0]:
             torch.testing.assert_close(stats[1][k], stats[0][k], rtol=0,
                                        atol=0)
-    with pytest.raises(ValueError):
-        sm.build_model(seq_config(rep_net=net, rep_remat=True,
-                                  rep_dropout=0.1), device="cpu")
+
+    def loss(out):
+        return out["pred_c"].sum() + out["pred_e"].square().sum()
+
+    for amp in (False, True):
+        remat_matches_plain(seq_config(rep_net=net, rep_dropout=0.1, **kw),
+                            tb, loss, amp=amp)
+    remat_matches_plain(seq_config(rep_net="TXL", rep_dropout=0.1,
+                                   rep_txl_seg_len=4), tb, loss)
 
 
 def test_train_step_and_evaluate_refine_the_targets_as_jax():

@@ -33,7 +33,8 @@ JAX package on the CPU, with random weights of the JAX model's shapes
   * Edge labels outside [0, R) take no relation, as in the JAX scan.
   * K3's calls (the plain version's, on the CPU) per eval forward and per
     train step equal models/scm_models.k3_launches, which chip_smoke.py
-    checks on the card; a rematerialised stack gives the same gradients.
+    checks on the card; a rematerialised stack gives the same gradients
+    and BatchNorm statistics, with dropout drawn from the same generator.
 """
 
 import jax
@@ -58,6 +59,7 @@ from dualmessagepassing_tpu_torch.models.scm_models import params_from_flax
 from dualmessagepassing_tpu_torch.ops import scatter as tsc
 from dualmessagepassing_tpu_torch.train.scm_driver import apply_model
 
+from test_torch_scm_amp import remat_matches_plain
 from test_torch_scm_data import (GRAPH_FIELDS, batches, jax_config,
                                  make_records, small_config)
 from test_torch_scm_model import LOSS_KW, REPS, _rows
@@ -233,8 +235,11 @@ def amp_ratios(case, weights):
         return np.concatenate(rows)
 
     def ratio(port, own, f32, floor=0.0):
-        num = float(np.sqrt(sum(((port[k] - f32[k]) ** 2).sum() for k in f32)))
-        den = float(np.sqrt(sum(((own[k] - f32[k]) ** 2).sum() for k in f32)))
+        def dist(a):      # in float64: the squares overflow float32
+            return float(np.sqrt(sum(
+                ((np.asarray(a[k], np.float64) - f32[k]) ** 2).sum()
+                for k in f32)))
+        num, den = dist(port), dist(own)
         assert np.isfinite(num)
         return num / (den + floor)
 
@@ -501,21 +506,19 @@ def test_k3_calls_equal_the_derived_count(net, kw, monkeypatch):
 
 @pytest.mark.parametrize("net", ["CompGCN", "RGCN", "RGIN"])
 def test_remat_gives_the_same_gradients(net):
+    """The rematerialised stack against the plain one: without dropout,
+    and with rep_dropout 0.1 and the family's BatchNorm (tests/
+    test_torch_scm_amp.remat_matches_plain: gradients, statistics, the
+    generator's state)."""
     pats, gras = make_records(4, 4, 4, 12, 24, 4, 4, seed=6)
     _, tb = batches(pats, gras)
-    grads = []
-    for remat in (False, True):
-        m = sm.build_model(small_config(rep_net=net, rep_remat=remat),
-                           device="cpu")
-        out = apply_model(m, *tb, train=True)
-        (out["pred_c"].sum() + out["pred_v"].square().sum()).backward()
-        grads.append({k: p.grad for k, p in m.named_parameters()})
-    for k in grads[0]:
-        torch.testing.assert_close(grads[1][k], grads[0][k], rtol=0,
-                                   atol=1e-7)
-    with pytest.raises(ValueError):
-        sm.build_model(small_config(rep_net=net, rep_remat=True,
-                                    rep_dropout=0.1), device="cpu")
+    bn = {"CompGCN": "rep_compgcn_batch_norm", "RGCN": "rep_rgcn_batch_norm",
+          "RGIN": "rep_rgin_batch_norm"}[net]
+    for kw in ({}, {"rep_dropout": 0.1, bn: True}):
+        _, stats = remat_matches_plain(
+            small_config(rep_net=net, **kw), tb,
+            lambda out: out["pred_c"].sum() + out["pred_v"].square().sum())
+    assert any(k.endswith("running_mean") for k in stats)
 
 
 if __name__ == "__main__":
