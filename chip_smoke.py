@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC training
 and embedding export, the kernel bench, and SCM subgraph counting and
-matching with DMPNN, the other graph networks, the sequence networks and
-the attention predict nets, with the port's four CUDA kernels built from
-this checkout.
+matching with DMPNN, the other graph networks, the sequence networks,
+the attention and the memory predict nets, with the port's four CUDA
+kernels built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -159,7 +159,10 @@ Phases (any failure raises and the script exits non-zero):
              graph's self-attention over 64 nodes and 512 edges): per
              network a bsz-16 batch on the card against the CPU (phase
              14's checks; the f32 bounds widened by twice the CPU's own
-             float32 error, its distance to a float64 run of the CPU),
+             float32 error, its distance to a float64 run of the CPU;
+             the outputs held in two stages: the predict nets' inputs,
+             then the outputs against the CPU's predict nets fed the
+             card's inputs),
              the train step at bsz 128 and the eval forward at 512
              (events, device ms, the share of the sparsemax's sort and
              scan kernels, peak memory); the ER command line with
@@ -169,7 +172,20 @@ Phases (any failure raises and the script exits non-zero):
              16, its gradients, running statistics and dropout
              generator's state against the run without remat from the
              same generator seed, K3's launches (the recomputation's
-             among them) against k3_launches.
+             among them) against k3_launches;
+ 17 SCM mem  the memory predict nets (MEM_CMP: MeanMemAttn mean,
+             SumMemAttn circular_lstm, MaxMemAttn attn, DIAMNet mean and
+             circular_lstm over DMPNN, DIAMNet circular_attn over CNN;
+             mem_len 4, phase 16's heads and round) at the flagship's
+             configuration with the pred net swapped: per network a
+             bsz-16 batch on the card against the CPU under phase 16's
+             rule; the train step at bsz 128 and the eval forward at 512
+             of MEM_TIMED (the four nets at mean over DMPNN and DIAMNet
+             circular_lstm: events, device ms, the shares of the
+             sparsemax's sort and scan kernels and of cuDNN's RNN
+             kernels, peak memory); the ER command line with --pred_net
+             DIAMNet --pred_mem_init circular_lstm for one epoch on phase
+             12's data, then cli/scm_evaluate.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -177,7 +193,7 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 and 11-16 print {"paths": {...}} before the kernels line: the
+Phases 7-9 and 11-17 print {"paths": {...}} before the kernels line: the
 kernel launches of each of their training runs, counted from zero just
 before it and read just after.
 
@@ -196,7 +212,8 @@ bench's largest size as "_bench"; phase 14's relation fold and LRP pool
 as "_rel_fold", "_lrp_pool" and their "_bfloat16" twins; phase 15's
 degree tables as "_edgeseq_deg", its degree steps' launches as
 "launches_scm_seq_deg_step"; phase 16's train steps' launches as
-"launches_scm_attn_step"), K4 at the
+"launches_scm_attn_step", phase 17's as "launches_scm_mem_step"), K4 at
+the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
 The last line is
@@ -206,6 +223,7 @@ The last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -407,6 +425,27 @@ ATTN_KW = dict(pred_infer_steps=1, pred_num_heads=4)
 SPARSEMAX_KERNELS = ("sort", "scan")
 # the remat repair: DMPNN rematerialised with dropout and BatchNorm
 REMAT_KW = dict(rep_remat=True, rep_dropout=0.1, rep_dmpnn_batch_norm=True)
+
+# --- phase 17: the memory predict nets ------------------------------------
+# (pred net, rep net, mem_init): card against CPU; the train step and the
+# eval forward timed for MEM_TIMED; mem_len 4 (the JAX package's default,
+# stated) and phase 16's heads and inference round
+MEM_CMP = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
+           ("SumMemAttnPredictNet", "DMPNN", "circular_lstm"),
+           ("MaxMemAttnPredictNet", "DMPNN", "attn"),
+           ("DIAMNet", "DMPNN", "mean"),
+           ("DIAMNet", "DMPNN", "circular_lstm"),
+           ("DIAMNet", "CNN", "circular_attn"))
+MEM_TIMED = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
+             ("SumMemAttnPredictNet", "DMPNN", "mean"),
+             ("MaxMemAttnPredictNet", "DMPNN", "mean"),
+             ("DIAMNet", "DMPNN", "mean"),
+             ("DIAMNet", "DMPNN", "circular_lstm"))
+MEM_KW = dict(ATTN_KW, pred_mem_len=4)
+MEM_NETS = ("MeanMemAttnPredictNet", "SumMemAttnPredictNet",
+            "MaxMemAttnPredictNet", "DIAMNet")
+# cuDNN's recurrent kernels (their names hold one of these, lower case)
+RNN_KERNELS = ("rnn", "lstm")
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -1545,17 +1584,68 @@ def scm_loss_and_grads(model, batch, amp):
     return preds, losses["total"].item(), grads, launches
 
 
-def scm_f64_errors(cfg, model, batch, f32) -> dict:
+PRED_NET_ATTRS = ("pred_net", "pred_net_v", "pred_net_e")
+
+
+@contextlib.contextmanager
+def pred_net_inputs(model, feed=None):
+    """Within it, each predict net of `model` (its attributes of
+    PRED_NET_ATTRS) records the floating inputs of its call (the
+    pattern's and the graph's rows, float64 copies on the CPU) in the
+    yielded dict under "<attribute>.<position>"; with `feed` (such a
+    dict) it takes those instead of its own, in its own inputs' dtype
+    and on their device."""
+    seen, hooks = {}, []
+
+    def pre(name):
+        def hook(module, args):
+            args = list(args)
+            for i, a in enumerate(args):
+                if torch.is_tensor(a) and a.is_floating_point():
+                    key = f"{name}.{i}"
+                    if feed is not None:
+                        args[i] = feed[key].to(device=a.device, dtype=a.dtype)
+                    seen[key] = args[i].detach().double().cpu()
+            return tuple(args)
+        return hook
+
+    for name in PRED_NET_ATTRS:
+        if getattr(model, name, None) is not None:
+            hooks.append(getattr(model, name).register_forward_pre_hook(
+                pre(name)))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def scm_outputs_from(model, batch, feed) -> dict:
+    """pred_c/v/e (float64, on the CPU) of a float32 train-mode forward of
+    a copy of `model` (on the CPU) whose predict nets take the inputs
+    `feed` (pred_net_inputs') in place of their own."""
+    m = copy.deepcopy(model)
+    pattern, graph = batch[:2]
+    with torch.no_grad(), pred_net_inputs(m, feed):
+        out = m(pattern, graph, train=True, dtype=torch.float32)
+    return {k: out[k].double() for k in ("pred_c", "pred_v", "pred_e")
+            if out[k] is not None}
+
+
+def scm_f64_errors(cfg, model, batch, f32, f32_inputs) -> dict:
     """The CPU's own float32 error: per output (pred_c/v/e), the loss
-    ("loss") and per gradient, the largest distance of the CPU's float32
-    result `f32` (scm_loss_and_grads') to a float64 run of the same model
-    and batch on the CPU (BatchNorm keeps its statistics in float32)."""
+    ("loss"), per gradient and per predict net's input (f32_inputs, the
+    CPU's, pred_net_inputs' keys), the largest distance of the CPU's
+    float32 result (`f32`, scm_loss_and_grads') to a float64 run of the
+    same model and batch on the CPU (BatchNorm keeps its statistics in
+    float32)."""
     m = copy.deepcopy(model).double()
     pattern, graph, counts, nw, ew = batch
     ew = scm_driver.refine_weights(m, "edge", ew)
     # EdgeSeqModel rounds its parameters for any dtype but float32
     kw = {"params_rounded": True} if cfg.rep_net in SEQ_NETS else {}
-    out = m(pattern, graph, train=True, dtype=torch.float64, **kw)
+    with pred_net_inputs(m) as inputs:
+        out = m(pattern, graph, train=True, dtype=torch.float64, **kw)
     losses = scm_loss(out, counts.double(), nw.double(), ew.double(),
                       **SCM_LOSS)
     losses["total"].backward()
@@ -1564,6 +1654,8 @@ def scm_f64_errors(cfg, model, batch, f32) -> dict:
            for k in preds}
     own.update({k: (grads[k].double() - p.grad).abs().max().item()
                 for k, p in m.named_parameters()})
+    own.update({k: (f32_inputs[k] - inputs[k]).abs().max().item()
+                for k in f32_inputs})
     own["loss"] = abs(loss - losses["total"].item())
     return own
 
@@ -1584,24 +1676,62 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
     ~12 % above it and 0.45 % apart (9.964e9 on the card, 1.0009e10 on
     the CPU, 8.905e9 in f32). With f64_slack each f32 bound
     (outputs, loss, gradients) grows by twice the CPU's own float32 error
-    on that tensor (scm_f64_errors): the attention nets' sparsemax
-    weights are differences of scores, and the card and the CPU each sit
-    up to ~1e-4 of the largest magnitude from the float64 result."""
+    on that tensor (scm_f64_errors), and the outputs are held in two
+    stages: the predict nets' inputs on the card against the CPU's, under
+    the outputs' rule, and the card's outputs, under their bound as it
+    was, against the CPU's model whose predict nets take the card's
+    inputs (scm_outputs_from). The attention nets' sparsemax
+    weights are differences of large scores, so a predict net turns its
+    inputs' last-bit differences into ~1e-4 of its output: over DMPNN at
+    phase 16's seed (bsz 16, NVIDIA H100 80GB HBM3, 700 W) the card's
+    MaxAttnPredictNet inputs sat at 0.006-0.007 of their bound, yet the
+    CPU's own predict nets fed them moved its outputs by 0.57-0.82 of the
+    end-to-end bound, and the card's outputs stood at 0.58-1.07 of it.
+    Those end-to-end shares are printed, not held."""
     batch = scm_batch(bsz, seed, cfg)
     model = scm_model(cfg, seed)
     card = copy.deepcopy(model).to(dev)
     dev_batch = [x.to(dev) for x in batch]
-    res = {}
+    res, inputs = {}, {}
     for amp in amps:
-        res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
-        res[("card", amp)] = scm_loss_and_grads(card, dev_batch, amp)
+        with pred_net_inputs(model) as cpu_in:
+            res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
+        with pred_net_inputs(card) as card_in:
+            res[("card", amp)] = scm_loss_and_grads(card, dev_batch, amp)
         torch.cuda.synchronize()
+        if not amp:
+            inputs = dict(cpu=cpu_in, card=card_in)
     want_launches = k3_dict(k3_launches(cfg, train=True))
     flagship = (cfg.rep_net, cfg.pred_net) == ("DMPNN", "SumPredictNet")
     f32_out, f32_loss, f32_grads, _ = res[("cpu", False)]
-    own = {}
+    own, staged, in_ratio, in_worst = {}, "", 0.0, None
+    # the f32 outputs' reference
+    out_ref = f32_out
     if f64_slack:
-        own = scm_f64_errors(cfg, model, batch, res[("cpu", False)])
+        own = scm_f64_errors(cfg, model, batch, res[("cpu", False)],
+                             inputs["cpu"])
+        out_ref = scm_outputs_from(model, batch, inputs["card"])
+        for k, cpu in inputs["cpu"].items():
+            err = (inputs["card"][k] - cpu).abs().max().item()
+            bound = SCM_F32_OUT_REL * cpu.abs().max().item() + 2 * own[k]
+            check(err <= bound, f"SCM f32 {k} (a predict net's input): "
+                  f"card err {err:.3e} exceeds {bound:.3e}")
+            if bound and err / bound >= in_ratio:
+                in_ratio, in_worst = err / bound, k
+
+        def e2e(out):
+            """out's worst share of the end-to-end bound."""
+            shares = [0.0]
+            for k, ref in f32_out.items():
+                bound = SCM_F32_OUT_REL * ref.abs().max().item() + 2 * own[k]
+                if bound:
+                    shares.append(
+                        (out[k].double() - ref).abs().max().item() / bound)
+            return max(shares)
+        staged = (f"; predict nets' inputs at {in_ratio:.3f} of their "
+                  f"bound; of the end-to-end bound (not held): the card's "
+                  f"outputs {e2e(res[('card', False)][0]):.3f}, the CPU's "
+                  f"fed the card's inputs {e2e(out_ref):.3f}")
         rel = {k: own[k] / max(f32_out[k].abs().max().item(), 1e-30)
                for k in f32_out}
         rel["loss"] = own["loss"] / max(abs(f32_loss), 1e-30)
@@ -1632,7 +1762,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
         check(np.isfinite(ld) and loss_err <= loss_bound,
               f"SCM {cfg.rep_net} {name}: loss card {ld} vs cpu {lc} (cpu "
               f"f32 {f32_loss}): {loss_err:.4g} exceeds {loss_bound:.4g}")
-        ratio = 0.0
+        ratio, at = (0.0, None) if amp else (in_ratio, in_worst)
         for k in list(po) + list(gc):
             got, cpu = (pd[k], po[k]) if k in po else (gd[k], gc[k])
             ref = f32_out[k] if k in po else f32_grads[k]
@@ -1644,7 +1774,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
                 bound = (TRAIN_AMP_FACTOR * (cpu - ref).abs().max().item()
                          + 2.0 ** -8 * scale)
             elif k in po:
-                err = (got - cpu).abs().max().item()
+                err = (got.double() - out_ref[k]).abs().max().item()
                 bound = SCM_F32_OUT_REL * scale + 2 * own.get(k, 0.0)
             else:
                 err = (got - cpu).abs().max().item()
@@ -1652,8 +1782,9 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
                          + 2 * own.get(k, 0.0))
             check(err <= bound, f"SCM {name} {k}: card err {err:.3e} "
                   f"exceeds {bound:.3e}")
-            ratio = max(ratio, err / bound if bound else 0.0)
-        extra = ""
+            if bound and err / bound >= ratio:
+                ratio, at = err / bound, k
+        extra = "" if amp else staged
         if amp:
             def dist(a, b):
                 return sum(((a[k] - b[k]) ** 2).sum().item()
@@ -1667,9 +1798,12 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
         deg = " pred_with_deg" if cfg.pred_with_deg else ""
         if cfg.pred_net != "SumPredictNet":
             deg += f" {cfg.pred_net}"
+        if cfg.pred_net in MEM_NETS:
+            deg += f" {cfg.pred_mem_init}"
         print(f"scm {cfg.rep_net}{deg} grads {name}: bsz {bsz}, loss card "
               f"{ld:.7f} cpu {lc:.7f}; {'/'.join(po)} and {len(gc)} "
-              f"gradients within bound (worst at {ratio:.3f} of it){extra}; "
+              f"gradients within bound (worst at {ratio:.3f} of it, {at})"
+              f"{extra}; "
               f"K3 launches {lcard}")
     return worst
 
@@ -1700,12 +1834,13 @@ def kernel_share(events, calls, names) -> float:
 
 
 def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
-               eval_bsz=SCM_INFER_BSZ, share=()) -> dict:
+               eval_bsz=SCM_INFER_BSZ, shares=()) -> dict:
     """The flagship train step (make_train_step: auto ~128-pair chunks)
     at bsz 128 and 2048, f32 and amp bf16, and the eval step at bsz 512:
     CUDA-event ms (median of 5 calls, wrapper and host work included),
-    torch.profiler device ms with K3's share (and that of the kernels
-    whose names hold one of `share`), pairs/s and edges/s (real graph
+    torch.profiler device ms with K3's share (and, per group of names in
+    `shares`, that of the kernels whose names hold one of the group's),
+    pairs/s and edges/s (real graph
     and pattern edges), each step's peak device memory; each step's K3
     launches against the derived count. An LRP batch's perm envelope
     (p_max, pattern and graph) is printed."""
@@ -1714,13 +1849,17 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
     tag = "" if cfg.rep_net == "DMPNN" else f"{cfg.rep_net} "
     if cfg.pred_net != "SumPredictNet":
         tag += f"{cfg.pred_net} "
+    if cfg.pred_net in MEM_NETS:
+        tag += f"{cfg.pred_mem_init} "
 
     def share_of(events, dv, calls):
-        if not share:
-            return {}, ""
-        ms = kernel_share(events, calls, share)
-        return {"share_ms": ms}, (f"; {'/'.join(share)} kernels {ms:.3f} "
-                                  f"ms ({100 * ms / dv:.1f} %)")
+        extra, text = {}, ""
+        for names in shares:
+            ms = kernel_share(events, calls, names)
+            extra["/".join(names) + "_ms"] = ms
+            text += (f"; {'/'.join(names)} kernels {ms:.3f} ms "
+                     f"({100 * ms / dv:.1f} %)")
+        return extra, text
     for bsz in train_bszs:
         batch = [x.to(dev) for x in scm_batch(bsz, seed + bsz, cfg)]
         chunks = scm_driver.auto_chunks(bsz)
@@ -2368,7 +2507,8 @@ def phase_scm_attn(dev, seed, data_dir) -> tuple:
         worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ,
                                 f64_slack=True)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
-                            train_bszs=(SCM_BSZ,), share=SPARSEMAX_KERNELS)
+                            train_bszs=(SCM_BSZ,),
+                            shares=(SPARSEMAX_KERNELS,))
         out[f"{pred}/{rep}"] = dict(
             worst=worst, timing=timing,
             step_launches=k3_launches(cfg, train=True))
@@ -2387,8 +2527,56 @@ def phase_scm_attn(dev, seed, data_dir) -> tuple:
     return out, paths
 
 
+def phase_scm_mem(dev, seed, data_dir) -> tuple:
+    """Phase 17: per memory predict net and init of MEM_CMP at the
+    flagship's configuration, a bsz-16 batch on the card against the CPU
+    (phase 16's rule); per one of MEM_TIMED the train step at bsz 128
+    and the eval forward at 512 (events, device ms, the sparsemax's and
+    cuDNN's RNN kernels' shares, peak memory); the ER command line with
+    --pred_net DIAMNet --pred_mem_init circular_lstm for one epoch on
+    phase 12's data (data_dir), then cli/scm_evaluate -> (results,
+    paths)."""
+    t0 = time.perf_counter()
+    out, paths = {}, {}
+
+    def config(pred, rep, init):
+        return scm_flagship_config().replace(
+            rep_net=rep, pred_net=pred, pred_mem_init=init, **MEM_KW)
+
+    for i, key in enumerate(MEM_CMP):
+        t1 = time.perf_counter()
+        cfg = config(*key)
+        out["/".join(key)] = dict(
+            worst=scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ,
+                                  f64_slack=True),
+            step_launches=k3_launches(cfg, train=True))
+        print(f"scm mem: {' '.join(key)} card vs cpu took "
+              f"{time.perf_counter() - t1:.1f} s")
+    for i, key in enumerate(MEM_TIMED):
+        t1 = time.perf_counter()
+        cfg = config(*key)
+        out.setdefault("/".join(key), dict(
+            step_launches=k3_launches(cfg, train=True)))["timing"] = \
+            scm_timing(cfg, dev, seed + 10 * i + 1, train_bszs=(SCM_BSZ,),
+                       shares=(SPARSEMAX_KERNELS, RNN_KERNELS))
+        print(f"scm mem: {' '.join(key)} timing took "
+              f"{time.perf_counter() - t1:.1f} s")
+    root = tempfile.mkdtemp(prefix="scm_mem_")
+    net, init = "DIAMNet", "circular_lstm"
+    run = scm_cli_run(f"{net}_{init}", SCM_CLI_ER + [
+        "--synthetic", "True", "--synthetic_pairs", str(SCM_CLI_PAIRS),
+        "--seed", str(seed), "--train_epochs", "1", "--save_data_dir",
+        data_dir, "--pred_net", net, "--pred_mem_init", init], root)
+    paths[f"scm_cli_{net}_{init}"] = run["launches"]
+    paths[f"scm_cli_{net}_{init}_evaluate"] = scm_cli_evaluate(
+        f"{net} {init} ", run)
+    print(f"scm mem: phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out, paths
+
+
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
-                 bench_launches, scm, scm_nets, scm_seq, scm_attn) -> dict:
+                 bench_launches, scm, scm_nets, scm_seq, scm_attn,
+                 scm_mem) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -2487,6 +2675,9 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
     # phase 16: the attention predict nets launch no K3 of their own
     k3["launches_scm_attn_step"] = {net: r["step_launches"]
                                     for net, r in scm_attn.items()}
+    # phase 17: nor do the memory predict nets
+    k3["launches_scm_mem_step"] = {net: r["step_launches"]
+                                   for net, r in scm_mem.items()}
 
     return {"kernels": [
         k12("segment_sum_sorted",
@@ -2647,13 +2838,19 @@ def main() -> int:
     # counted from zero
     scm_attn, attn_paths = phase_scm_attn(dev, args.seed + 30, cli_data)
     paths.update(attn_paths)
-    print(json.dumps({"paths": paths}))
     print(f"phase 16 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
+    # phase 17: the memory predict nets, each run counted from zero
+    scm_mem, mem_paths = phase_scm_mem(dev, args.seed + 40, cli_data)
+    paths.update(mem_paths)
+    print(json.dumps({"paths": paths}))
+    print(f"phase 17 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches, scm,
-                                  scm_nets, scm_seq, scm_attn)))
+                                  scm_nets, scm_seq, scm_attn, scm_mem)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,6 @@ in a flat dict (the reference's config dict), and `process_model_config`
 size formulas) before ModelConfig construction.
 
 What the port runs is narrower than what parses: get_train_config refuses
-the memory predict nets (--pred_net, MEM_PRED_NETS: not ported) and
 --dp_devices > 1 (the port has no data-parallel path), before any data is
 built. --device picks the torch device (default cuda); --gpu_id N >= 0
 picks cuda:N, and -1 the current CUDA device, never the CPU (the
@@ -26,7 +25,6 @@ from typing import Any, Dict
 
 import torch
 
-from ..models.pred import MEM_PRED_NETS
 from ..utils.io import str2bool, str2list, str2value
 
 
@@ -194,10 +192,6 @@ def get_train_config(argv=None) -> Dict[str, Any]:
     add_data_config(parser)
     add_train_config(parser)
     args = parser.parse_args(argv)
-    if args.pred_net in MEM_PRED_NETS:
-        parser.error(f"--pred_net {args.pred_net}: the port has the pooling "
-                     "and the attention predict nets; the memory predict "
-                     "nets come with slice D2b-ii of the port (ROADMAP)")
     if args.dp_devices > 1:
         parser.error(f"--dp_devices {args.dp_devices}: the port has no "
                      "data-parallel SCM path; it comes with slice E of the "

@@ -38,9 +38,7 @@ class ModelConfig:
     """Flattened model configuration (the reference's flags, config.py),
     field for field the JAX package's, so a config translates with
     ModelConfig(**dataclasses.asdict(jax_config)). Sizes are model-facing
-    (after the reversed-edge doubling, train.py:38-65). The memory
-    predict nets' fields (pred_mem_len, pred_mem_init) are carried and
-    unused."""
+    (after the reversed-edge doubling, train.py:38-65)."""
 
     max_ngv: int
     max_ngvl: int
@@ -239,7 +237,8 @@ class GraphAdjModelV2(nn.Module):
         rep_v_dim, rep_e_dim = cfg.rep_dims()
         kw = dict(act=cfg.pred_act_func, dropout=cfg.pred_dropout,
                   generator=generator, infer_steps=cfg.pred_infer_steps,
-                  num_heads=cfg.pred_num_heads)
+                  num_heads=cfg.pred_num_heads, mem_len=cfg.pred_mem_len,
+                  mem_init=cfg.pred_mem_init)
         self.pred_net_v = self.pred_net_e = None
         if cfg.node_pred:
             self.pred_net_v = build_pred_net(
@@ -409,7 +408,8 @@ class GraphAdjModel(nn.Module):
             act=cfg.pred_act_func, dropout=cfg.pred_dropout,
             return_weights="node" in cfg.pred_return_weights,
             generator=generator, infer_steps=cfg.pred_infer_steps,
-            num_heads=cfg.pred_num_heads)
+            num_heads=cfg.pred_num_heads, mem_len=cfg.pred_mem_len,
+            mem_init=cfg.pred_mem_init)
 
     def make_rep_net(self, generator) -> nn.Module:
         raise NotImplementedError

@@ -53,7 +53,8 @@ from ..utils.init import calculate_gain, kaiming_normal
 from .basemodel import ModelConfig
 from .embed import Embedding, MultihotEncoder, PositionEncoder
 from .filter import scalar_filter
-from .layers import Dense, LayerNorm, MaskedBatchNorm, dropout, remat
+from .layers import (Dense, LayerNorm, MaskedBatchNorm, dropout, remat,
+                     rounded_params)
 from .pred import build_pred_net
 
 _FIELDS = ("u", "v", "ul", "el", "vl")
@@ -145,7 +146,8 @@ class EdgeSeqModel(nn.Module):
             act=cfg.pred_act_func, dropout=cfg.pred_dropout,
             return_weights="edge" in cfg.pred_return_weights,
             generator=generator, p_rep_dim=width("pattern"),
-            infer_steps=cfg.pred_infer_steps, num_heads=cfg.pred_num_heads)
+            infer_steps=cfg.pred_infer_steps, num_heads=cfg.pred_num_heads,
+            mem_len=cfg.pred_mem_len, mem_init=cfg.pred_mem_init)
 
     def make_rep_net(self, generator) -> nn.Module:
         raise NotImplementedError
@@ -187,12 +189,8 @@ class EdgeSeqModel(nn.Module):
         module docstring)."""
         if dtype == torch.float32 or params_rounded:
             return self._forward(pattern, graph, train, dtype, generator)
-        # all parameters in one buffer: one cast each way for the model
-        names, params = zip(*self.named_parameters())
-        flat = torch.cat([p.reshape(-1) for p in params]).to(dtype).float()
-        rounded = {k: v.view_as(p) for k, p, v in zip(
-            names, params, flat.split([p.numel() for p in params]))}
-        return functional_call(self, rounded, (pattern, graph), dict(
+        return functional_call(self, rounded_params(self, dtype), (
+            pattern, graph), dict(
             train=train, dtype=dtype, generator=generator,
             params_rounded=True))
 
@@ -461,6 +459,34 @@ class RNNCell(nn.Module):
         return out
 
 
+def run_cells(rnn_type: str, cells: List[RNNCell], x: torch.Tensor,
+              bidirectional: bool = False) -> torch.Tensor:
+    """One recurrent layer (one cell, or a forward and a backward cell)
+    over x [N, T, in] from zero states, batch first -> outputs [N, T,
+    hid * len(cells)] in x's dtype, by torch's RNN function of rnn_type.
+    The weights go in as one buffer in cuDNN's layout, the matrices of
+    each direction (w_ih, w_hh), then their biases: cuDNN takes views
+    into it as they are, and compacts any other weight list at every
+    call."""
+    x = x.contiguous()
+    ws = [c.weights() for c in cells]
+    parts = [w for w4 in ws for w in w4[:2]] + [b for w4 in ws
+                                                 for b in w4[2:]]
+    flat = torch.cat([p.reshape(-1) for p in parts]).to(x.dtype)
+    views = [v.view(p.shape) for p, v in zip(
+        parts, flat.split([p.numel() for p in parts]))]
+    mats, biases = views[:2 * len(ws)], views[2 * len(ws):]
+    weights = [w for d in range(0, len(mats), 2)
+               for w in mats[d:d + 2] + biases[d:d + 2]]
+    h0 = x.new_zeros((len(cells), x.shape[0], cells[0].hid))
+    hx = (h0, h0) if rnn_type == "LSTM" else h0
+    # `train` of torch's RNN functions: cuDNN keeps what its backward
+    # needs only then (their dropout is 0)
+    return _RNN_FNS[rnn_type](x, hx, weights, True, 1, 0.0,
+                              torch.is_grad_enabled(), bidirectional,
+                              True)[0]
+
+
 class RNNLayer(nn.Module):
     """One recurrent layer (uni- or bidirectional, hid // 2 per direction)
     -> [LayerNorm] -> dropout, over the whole padded sequence."""
@@ -486,26 +512,8 @@ class RNNLayer(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 update_stats: bool = True) -> torch.Tensor:
-        x = x.contiguous()
-        # one buffer in cuDNN's layout, the matrices of each direction
-        # (w_ih, w_hh), then their biases: cuDNN takes views into it as
-        # they are, and compacts any other weight list at every call
-        cells = [getattr(self, c).weights() for c in self.cells]
-        parts = [w for ws in cells for w in ws[:2]] + \
-            [b for ws in cells for b in ws[2:]]
-        flat = torch.cat([p.reshape(-1) for p in parts]).to(x.dtype)
-        views = [v.view(p.shape) for p, v in zip(
-            parts, flat.split([p.numel() for p in parts]))]
-        mats, biases = views[:2 * len(cells)], views[2 * len(cells):]
-        weights = [w for d in range(0, len(mats), 2)
-                   for w in mats[d:d + 2] + biases[d:d + 2]]
-        h0 = x.new_zeros((len(self.cells), x.shape[0], self.hid))
-        hx = (h0, h0) if self.rnn_type == "LSTM" else h0
-        # `train` of torch's RNN functions: cuDNN keeps what its backward
-        # needs only then (their dropout is 0)
-        o = _RNN_FNS[self.rnn_type](x, hx, weights, True, 1, 0.0,
-                                    torch.is_grad_enabled(),
-                                    self.bidirectional, True)[0]
+        o = run_cells(self.rnn_type, [getattr(self, c) for c in self.cells],
+                      x, self.bidirectional)
         if self.ln is not None:
             o = self.ln(o)
         return dropout(o, self.dropout, train, generator)

@@ -11,7 +11,7 @@ the JAX package's amp: float32 master parameters, bf16 compute.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,13 +37,29 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep, 0.0)
 
 
+def rounded_params(module: nn.Module, dtype: torch.dtype
+                   ) -> Dict[str, torch.Tensor]:
+    """The module's parameters rounded to `dtype` and back to float32,
+    by name, for torch.func.functional_call: JAX's amp casts every
+    parameter to bf16 (cast_floats), so where a float32 input meets a
+    parameter, JAX computes in float32 on the rounded value. The
+    rounding passes the gradient, rounded to `dtype`, to the float32
+    masters. All parameters go through one buffer: one cast each way."""
+    names, params = zip(*module.named_parameters())
+    flat = torch.cat([p.reshape(-1) for p in params]).to(dtype).float()
+    return {k: v.view_as(p) for k, p, v in zip(
+        names, params, flat.split([p.numel() for p in params]))}
+
+
 class Dense(nn.Module):
     """x @ kernel + bias, kernel [in_dim, features] drawn by init name
     (utils/init.get_initializer); `activation` picks only the init gain
     and applies nothing. forward(parts=[...]) is the concat-free form:
     concat(parts, -1) @ kernel == sum_i parts[i] @ kernel[rows of part
     i], the kernel's rows in parts order, each part broadcasting against
-    the others (a per-graph [B, 1, h] row beside [B, L, h] streams)."""
+    the others (a per-graph [B, 1, h] row beside [B, L, h] streams).
+    Each part meets the kernel in its own dtype and the sum promotes, as
+    in JAX (DIAMNet's float32 lengths beside bf16 rows under amp)."""
 
     def __init__(self, in_dim: int, features: int, use_bias: bool = True,
                  init: str = "uniform", activation: str = "none",
@@ -61,13 +77,13 @@ class Dense(nn.Module):
             y = x @ self.kernel.to(dt)
         else:
             dt = parts[0].dtype
-            w = self.kernel.to(dt)
+            w = self.kernel
             if sum(p.shape[-1] for p in parts) != w.shape[0]:
                 raise ValueError("parts do not add up to the kernel's rows")
             y, off = None, 0
             for p in parts:
                 k = p.shape[-1]
-                term = p @ w[off: off + k]
+                term = p @ w[off: off + k].to(p.dtype)
                 y = term if y is None else y + term
                 off += k
         if self.bias is not None:
@@ -164,7 +180,8 @@ class UpdateMLP(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax nn.LayerNorm over the last axis: epsilon 1e-6, statistics in
-    float32, parameters "scale" and "bias"."""
+    float32 (float64 for a float64 input), parameters "scale" and
+    "bias"."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -173,8 +190,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), x.shape[-1:], self.scale, self.bias,
-                         self.eps)
+        dt = torch.promote_types(x.dtype, torch.float32)
+        y = F.layer_norm(x.to(dt), x.shape[-1:], self.scale.to(dt),
+                         self.bias.to(dt), self.eps)
         return y.to(x.dtype)
 
 

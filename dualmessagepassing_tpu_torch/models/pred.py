@@ -15,13 +15,14 @@ exists; the parameters are those of the concatenation. The true lengths
 pl, gl are summed in float32 and then cast to the compute dtype (bf16
 cannot count above 256). Pooling: sum (masked), mean (sum over the
 batch's largest true length, the reference's padded length) or max
-(padding at 0). The attention variants (models/pred_attn.py) transform
-the graph's rows first (pre_transform); the memory variants are not
-ported.
+(padding at 0). The attention and memory variants (models/pred_attn.py)
+transform the graph's rows first (pre_transform); DIAMNet, also there,
+is a predict net of its own with the same call.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional, Tuple
 
 import torch
@@ -127,31 +128,28 @@ PRED_NETS = {
 }
 
 
-# the JAX package's memory predict nets (pred_attn.py:346-535)
-MEM_PRED_NETS = ("MeanMemAttnPredictNet", "SumMemAttnPredictNet",
-                 "MaxMemAttnPredictNet", "DIAMNet")
-
-
 def build_pred_net(name: str, rep_dim: int, hidden_dim: int, act: str,
                    dropout: float, return_weights: bool,
                    generator: Optional[torch.Generator] = None,
                    p_rep_dim: Optional[int] = None, infer_steps: int = 1,
-                   num_heads: int = 4) -> PredictNet:
+                   num_heads: int = 4, mem_len: int = 4,
+                   mem_init: str = "mean") -> nn.Module:
     """create_pred_net (basemodel.py:1074-1366): the pooling nets, and
-    the attention nets (models/pred_attn.py) with their infer_steps and
-    num_heads, which the pooling nets ignore. p_rep_dim is the pattern
-    rep's width where it is not rep_dim."""
+    the attention and memory nets (models/pred_attn.py), each given the
+    options of infer_steps, num_heads, mem_len and mem_init its
+    constructor takes (the JAX package's field filter, pred.py:138-162).
+    p_rep_dim is the pattern rep's width where it is not rep_dim."""
     from .pred_attn import ATTN_PRED_NETS   # it subclasses the nets here
 
     kw = dict(act=act, dropout=dropout, return_weights=return_weights,
               generator=generator, p_rep_dim=p_rep_dim)
     if name in PRED_NETS:
         return PRED_NETS[name](rep_dim, hidden_dim, **kw)
-    if name in ATTN_PRED_NETS:
-        return ATTN_PRED_NETS[name](rep_dim, hidden_dim, **kw,
-                                    infer_steps=infer_steps,
-                                    num_heads=num_heads)
-    if name in MEM_PRED_NETS:
-        raise ValueError(f"pred_net '{name}' is not ported yet: the memory "
-                         "predict nets come with slice D2b-ii of the port")
-    raise ValueError(f"unknown pred_net '{name}'")
+    if name not in ATTN_PRED_NETS:
+        raise ValueError(f"unknown pred_net '{name}'")
+    cls = ATTN_PRED_NETS[name]
+    takes = inspect.signature(cls).parameters
+    extra = dict(infer_steps=infer_steps, num_heads=num_heads,
+                 mem_len=mem_len, mem_init=mem_init)
+    return cls(rep_dim, hidden_dim, **kw,
+               **{k: v for k, v in extra.items() if k in takes})

@@ -942,6 +942,35 @@ def test_attention_predict_net_train_step_card_matches_cpu(
     _grads_close(gg, gc)
 
 
+@pytest.mark.parametrize("pred_net, rep_net, mem_init", [
+    ("MeanMemAttnPredictNet", "DMPNN", "mean"),
+    ("SumMemAttnPredictNet", "DMPNN", "circular_lstm"),
+    ("MaxMemAttnPredictNet", "DMPNN", "attn"),
+    ("DIAMNet", "DMPNN", "circular_mean"),
+    ("DIAMNet", "CNN", "lstm")])
+def test_memory_predict_net_train_step_card_matches_cpu(
+        cuda, monkeypatch, pred_net, rep_net, mem_init):
+    """A memory predict net at the flagship's width (mem_len 4, 4 heads,
+    sparsemax, one inference round) over DMPNN or CNN on a small batch,
+    with an lstm and an attn init among them: the loss and every
+    parameter gradient on the card against the CPU (the bounds of
+    test_attention_predict_net_train_step_card_matches_cpu); K3's
+    launches those of the rep net alone."""
+    from dualmessagepassing_tpu_torch.models.scm_models import k3_launches
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    sides, targets = _flagship_pairs(np.random.default_rng(22), rep_net)
+    cfg = _flagship_config(rep_net=rep_net, pred_net=pred_net,
+                           pred_num_heads=4, pred_mem_len=4,
+                           pred_mem_init=mem_init)
+    lc, gc, _, kc = _loss_and_grads(cfg, "cpu", sides, targets)
+    lg, gg, _, kg = _loss_and_grads(cfg, cuda, sides, targets)
+    want = k3_launches(cfg, train=True)
+    assert kc == {} and kg == ({"segment_sum_unsorted": want} if want
+                               else {})
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    _grads_close(gg, gc)
+
+
 @pytest.mark.parametrize("rep_net, kw", [
     ("DMPNN", dict(rep_dmpnn_batch_norm=True)),
     ("CompGCN", dict(rep_compgcn_batch_norm=True)),

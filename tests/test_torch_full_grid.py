@@ -3,7 +3,9 @@ dualmessagepassing_tpu_torch): every ported rep net x every ported pred
 net trains.
 
 Nine rep nets (DMPNN, CompGCN, R-GCN, R-GIN; CNN, RNN, TXL; LRP, DMPLRP)
-x six pred nets (Sum, Mean, Max and their Attn variants). For each
+x ten pred nets (Sum, Mean, Max, their Attn and MemAttn variants, and
+DIAMNet; the memory nets' mem_init runs through the ten values over the
+grid, MEM_INITS). For each
 combination: (a) the model builds and gives finite counts of shape
 [B, 1]; (b) over two optimizer steps of the count + matching loss the
 loss and every gradient stay finite, and the second step's gradient is
@@ -30,17 +32,20 @@ from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
                                                 record_to_edgeseq,
                                                 single_graph)
 from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
+from dualmessagepassing_tpu_torch.models.pred_attn import MEM_INITS
 from dualmessagepassing_tpu_torch.models.scm_models import build_model
 from dualmessagepassing_tpu_torch.train import scm_driver as tdrv
 
 pytestmark = pytest.mark.skipif(
     not os.environ.get("FULL_GRID"),
-    reason="54-combination grid; set FULL_GRID=1 to run")
+    reason="90-combination grid; set FULL_GRID=1 to run")
 
 REP_NETS = ["DMPNN", "CompGCN", "RGCN", "RGIN", "CNN", "RNN", "TXL", "LRP",
             "DMPLRP"]
 PRED_NETS = ["SumPredictNet", "MeanPredictNet", "MaxPredictNet",
-             "SumAttnPredictNet", "MeanAttnPredictNet", "MaxAttnPredictNet"]
+             "SumAttnPredictNet", "MeanAttnPredictNet", "MaxAttnPredictNet",
+             "SumMemAttnPredictNet", "MeanMemAttnPredictNet",
+             "MaxMemAttnPredictNet", "DIAMNet"]
 
 
 def grid_batch(rep_net, bsz=4, seed=0):
@@ -91,7 +96,10 @@ def test_grid(rep_net, pred_net):
         rep_num_pattern_layers=1, rep_num_graph_layers=1, pred_hid_dim=8,
         filter_net="ScalarFilter", rep_net=rep_net, pred_net=pred_net,
         pred_return_weights="nodeedge", rep_rgcn_num_bases=2,
-        rep_rgin_num_bases=2, rep_txl_seg_len=4, rep_txl_mem_len=4)
+        rep_rgin_num_bases=2, rep_txl_seg_len=4, rep_txl_mem_len=4,
+        pred_mem_len=3, pred_mem_init=MEM_INITS[
+            (REP_NETS.index(rep_net) + PRED_NETS.index(pred_net))
+            % len(MEM_INITS)])
     model = build_model(cfg, device="cpu")
     pattern, graph = grid_batch(rep_net)
     with torch.no_grad():

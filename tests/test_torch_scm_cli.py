@@ -12,6 +12,7 @@ checkpoint gives eval outputs bitwise equal to those before the save.
 
 import copy
 import dataclasses
+import itertools
 import json
 import logging
 import os
@@ -144,32 +145,43 @@ def test_refused_at_parse_time(capsys):
     assert "slice E" in capsys.readouterr().err
 
 
-def test_attention_predict_nets_refused_at_parse_time(capsys):
-    """Of the JAX package's attention predict nets (models/pred_attn.py:
-    527-535) the three Attn nets parse and build; the four memory nets
-    are refused before any data is built, naming slice D2b-ii; the
-    pooling nets parse."""
+def test_attention_predict_nets_refused_at_parse_time():
+    """All seven attention predict nets of the JAX package (models/
+    pred_attn.py:527-535), the memory nets among them, and the pooling
+    nets parse and build with --pred_num_heads, --pred_mem_len and
+    --pred_mem_init, each memory net over several of the ten mem_inits;
+    an unknown mem_init raises at build, as in the JAX package. (The
+    memory nets were refused here, naming slice D2b-ii, until that slice
+    ported them.)"""
     from dualmessagepassing_tpu.models.pred_attn import ATTN_PRED_NETS
     from dualmessagepassing_tpu_torch.models import pred as tpred
     from dualmessagepassing_tpu_torch.models import pred_attn as tattn
-    assert set(ATTN_PRED_NETS) == set(tattn.ATTN_PRED_NETS) | set(
-        tpred.MEM_PRED_NETS)
-    for name in tpred.MEM_PRED_NETS:
-        with pytest.raises(SystemExit):
-            ttrain.main(TINY + ["--pred_net", name])
-        assert "slice D2b-ii" in capsys.readouterr().err
-        with pytest.raises(ValueError, match="D2b-ii"):
-            tpred.build_pred_net(name, 8, 6, "relu", 0.0, True)
-    for name in ["SumPredictNet", "MeanPredictNet", "MaxPredictNet",
-                 *tattn.ATTN_PRED_NETS]:
-        cfg = tcfg.get_train_config(TINY + ["--pred_net", name,
-                                            "--pred_num_heads", "2"])
-        assert cfg["pred_net"] == name
-        mcfg = tcfg.to_model_config(tcfg.process_model_config(cfg))
-        model = sm.build_model(mcfg, device="cpu")
-        attn = getattr(model.pred_net_v, "g_attn", None)
-        assert (attn is not None and attn.num_heads == 2) == (
-            name in tattn.ATTN_PRED_NETS)
+    assert set(ATTN_PRED_NETS) == set(tattn.ATTN_PRED_NETS)
+    names = ["SumPredictNet", "MeanPredictNet", "MaxPredictNet",
+             *tattn.ATTN_PRED_NETS]
+    inits = itertools.cycle(tattn.MEM_INITS)
+    for name in names:
+        for init in [next(inits) for _ in range(3 if "Mem" in name
+                                                or name == "DIAMNet"
+                                                else 1)]:
+            cfg = tcfg.get_train_config(TINY + [
+                "--pred_net", name, "--pred_num_heads", "2",
+                "--pred_mem_len", "3", "--pred_mem_init", init])
+            assert (cfg["pred_net"], cfg["pred_mem_init"]) == (name, init)
+            mcfg = tcfg.to_model_config(tcfg.process_model_config(cfg))
+            net = sm.build_model(mcfg, device="cpu").pred_net_v
+            attn = getattr(net, "g_attn", None)
+            assert (attn is not None) == (name in tattn.ATTN_PRED_NETS)
+            if isinstance(attn, tattn.MemDotAttention):
+                assert (attn.mem_len, attn.mem_init) == (3, init)
+                attn = attn.attn
+            if isinstance(net, tattn.DIAMNet):
+                assert (net.mem_len, net.mem_init) == (3, init)
+            assert attn is None or attn.num_heads == 2
+    for name in ("DIAMNet", "SumMemAttnPredictNet"):
+        with pytest.raises(NotImplementedError, match="mem_init"):
+            tpred.build_pred_net(name, 8, 6, "relu", 0.0, True,
+                                 mem_init="circular")
 
 
 def test_gpu_id_minus_one_asks_for_cuda(tmp_path):
