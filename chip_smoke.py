@@ -85,7 +85,8 @@ Phases (any failure raises and the script exits non-zero):
              pred_c/pred_v/pred_e, loss and every gradient on the card
              against the CPU, f32 and amp bf16, with K3's launches against
              models/scm_models.k3_launches; the train step at bsz 128 and
-             2,048 and the eval step at bsz 512 (bench.py:116,621), CUDA-
+             the eval step at bsz 512 (bench.py:116,621; the bsz-2,048
+             step left the run for phase 18's time), CUDA-
              event and torch.profiler device ms, K3's share, pairs/s and
              edges/s; then the user's path counted from zero:
              generate_dataset (an ER set at the scm_er_counting sizes),
@@ -162,10 +163,13 @@ Phases (any failure raises and the script exits non-zero):
              float32 error, its distance to a float64 run of the CPU;
              the outputs held in two stages: the predict nets' inputs,
              then the outputs against the CPU's predict nets fed the
-             card's inputs),
-             the train step at bsz 128 and the eval forward at 512
-             (events, device ms, the share of the sparsemax's sort and
-             scan kernels, peak memory); the ER command line with
+             card's inputs, that bound widened by each device's own
+             float32 error on them),
+             per network the train step at bsz 128 and the eval forward
+             at 512 (events, peak memory, K3's launches; for ATTN_TIMED,
+             MeanAttn over DMPNN and over CNN, also device ms and the
+             share of the sparsemax's sort and scan kernels by
+             torch.profiler); the ER command line with
              --pred_net MeanAttnPredictNet for one epoch on phase 12's
              data, then cli/scm_evaluate; and the remat repair: DMPNN
              with REMAT_KW (rep_remat, dropout 0.1, BatchNorm) at bsz
@@ -180,12 +184,33 @@ Phases (any failure raises and the script exits non-zero):
              configuration with the pred net swapped: per network a
              bsz-16 batch on the card against the CPU under phase 16's
              rule; the train step at bsz 128 and the eval forward at 512
-             of MEM_TIMED (the four nets at mean over DMPNN and DIAMNet
-             circular_lstm: events, device ms, the shares of the
-             sparsemax's sort and scan kernels and of cuDNN's RNN
-             kernels, peak memory); the ER command line with --pred_net
+             of MEM_STEP (Mean, Sum and Max MemAttn and DIAMNet at mean
+             over DMPNN, DIAMNet circular_lstm: events, peak memory, K3's
+             launches; for MEM_TIMED, MeanMemAttn and the two DIAMNets,
+             also device ms and the shares of the sparsemax's sort and
+             scan kernels and of cuDNN's RNN kernels by torch.profiler);
+             the ER command line with --pred_net
              DIAMNet --pred_mem_init circular_lstm for one epoch on phase
-             12's data, then cli/scm_evaluate.
+             12's data, then cli/scm_evaluate; before them, DIAMNet
+             circular_lstm's window LSTMs against a float64 run of them,
+             float32 by cuDNN, by torch's native CUDA LSTM and by the CPU
+             (lstm_f64_errors);
+ 18 dist     scale-out over torch.distributed (parallel/): the flagship's
+             data-parallel train step (bsz 128, 64 pairs a rank) and the
+             PubMed batch edge-partitioned (DMPNN at full width, one step
+             of CompGCN, R-GCN and R-GIN), each as two ranks sharing
+             cuda:0 over gloo and as a world of one over NCCL (NCCL
+             refuses two ranks on one card), held against the one-rank
+             step on the card (DP under phase 11's train bounds, EP under
+             phase 5's), the ranks' states bit for bit equal, K3's
+             launches per DP rank and K1's and K2's per EP rank; K1 and K2
+             at the EP shard shape and K3 at the DP rank's against their
+             plain versions, timed (after phase 6, early in the run, as
+             CUPTI late in a long process has dropped whole traces);
+             then train_epoch (one epoch) and
+             train_unc (BACKBONE_LINKS links) over the two gloo ranks,
+             launches counted from zero. The two ranks' step times are
+             those of two ranks sharing one card, no scale-out speed.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -193,9 +218,9 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 and 11-17 print {"paths": {...}} before the kernels line: the
+Phases 7-9 and 11-18 print {"paths": {...}} before the kernels line: the
 kernel launches of each of their training runs, counted from zero just
-before it and read just after.
+before it and read just after (phase 18's per rank, rank 0's printed).
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
 (K1, K2: phase 5's training and export, forward and backward; K3: phase
@@ -212,7 +237,10 @@ bench's largest size as "_bench"; phase 14's relation fold and LRP pool
 as "_rel_fold", "_lrp_pool" and their "_bfloat16" twins; phase 15's
 degree tables as "_edgeseq_deg", its degree steps' launches as
 "launches_scm_seq_deg_step"; phase 16's train steps' launches as
-"launches_scm_attn_step", phase 17's as "launches_scm_mem_step"), K4 at
+"launches_scm_attn_step", phase 17's as "launches_scm_mem_step"; phase
+18's DP rank shape as "_dp_rank", its launches a step as
+"launches_dp_rank_step"; K1's and K2's EP shard shape as "_ep_shard",
+their launches per EP rank and step as "launches_ep_rank_step"), K4 at
 the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
@@ -254,6 +282,7 @@ from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
                                                 single_graph)
 from dualmessagepassing_tpu_torch.models.basemodel import ModelConfig
 from dualmessagepassing_tpu_torch.models.layers import MaskedBatchNorm
+from dualmessagepassing_tpu_torch.models.pred_attn import WindowLSTMMem
 from dualmessagepassing_tpu_torch.models.scm_models import (build_model,
                                                             k3_launches)
 from dualmessagepassing_tpu_torch.ops import scatter as scm_ops
@@ -261,6 +290,12 @@ from dualmessagepassing_tpu_torch.ops import scatter_kernels as sc
 from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
                                                     build_cuda_kernels)
+from dualmessagepassing_tpu_torch.parallel import dist, dp
+from dualmessagepassing_tpu_torch.parallel.dist import (all_reduce_grads,
+                                                        all_reduce_sum,
+                                                        split_rows)
+from dualmessagepassing_tpu_torch.parallel.ep_unc import (
+    attach_ep_csr_plans, make_ep_train_step, pad_e_max, shard_sub)
 from dualmessagepassing_tpu_torch.unc.data import WholeGraph, save_embeddings
 from dualmessagepassing_tpu_torch.unc import evaluate
 from dualmessagepassing_tpu_torch.unc.driver import (
@@ -332,9 +367,9 @@ K2_OFFSETS = ((0, 0), (1, 3), (3, 1), (0, 5))
 K1_FWD, K1_BWD, K2_FWD, K2_BWD = N_LAYERS, 2 * N_LAYERS, N_LAYERS, N_LAYERS
 
 # --- phase 11: SCM ---------------------------------------------------------
-# bench.py's default train batch, its large one, and the scm_infer batch
-# (bench.py:116,621)
-SCM_BSZ, SCM_BIG_BSZ, SCM_INFER_BSZ = 128, 2048, 512
+# bench.py's default train batch and the scm_infer batch (bench.py:
+# 116,621); its large train batch, 2,048, is no longer timed here
+SCM_BSZ, SCM_INFER_BSZ = 128, 512
 # real edges per pair: graph 256 and pattern 8, each with its reversed
 # copy (bench.py:770)
 SCM_EDGES_PER_PAIR = 2 * 256 + 2 * 8
@@ -420,6 +455,11 @@ SEQ_GRU = dict(rep_net="RNN", rep_rnn_type="GRU", rep_rnn_bidirectional=True)
 ATTN_NETS = (("MeanAttnPredictNet", "DMPNN"), ("SumAttnPredictNet", "DMPNN"),
              ("MaxAttnPredictNet", "DMPNN"), ("MeanAttnPredictNet", "CNN"))
 ATTN_KW = dict(pred_infer_steps=1, pred_num_heads=4)
+# every net's train step and eval forward run on the card, timed by
+# events with their K3 launches checked; those of ATTN_TIMED are also
+# profiled (torch.profiler: device ms and kernel shares; a profile costs
+# seconds of host time, which the run's limit does not leave for all)
+ATTN_TIMED = (("MeanAttnPredictNet", "DMPNN"), ("MeanAttnPredictNet", "CNN"))
 # the device kernels of the sparsemax's sort and cumsum (torch.sort's and
 # torch.cumsum's kernels, matched by name)
 SPARSEMAX_KERNELS = ("sort", "scan")
@@ -428,17 +468,21 @@ REMAT_KW = dict(rep_remat=True, rep_dropout=0.1, rep_dmpnn_batch_norm=True)
 
 # --- phase 17: the memory predict nets ------------------------------------
 # (pred net, rep net, mem_init): card against CPU; the train step and the
-# eval forward timed for MEM_TIMED; mem_len 4 (the JAX package's default,
-# stated) and phase 16's heads and inference round
+# eval forward of MEM_STEP on the card, timed by events, those of
+# MEM_TIMED also profiled (phase 16's rule); mem_len 4 (the JAX package's
+# default, stated) and phase 16's heads and inference round
 MEM_CMP = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
            ("SumMemAttnPredictNet", "DMPNN", "circular_lstm"),
            ("MaxMemAttnPredictNet", "DMPNN", "attn"),
            ("DIAMNet", "DMPNN", "mean"),
            ("DIAMNet", "DMPNN", "circular_lstm"),
            ("DIAMNet", "CNN", "circular_attn"))
+MEM_STEP = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
+            ("SumMemAttnPredictNet", "DMPNN", "mean"),
+            ("MaxMemAttnPredictNet", "DMPNN", "mean"),
+            ("DIAMNet", "DMPNN", "mean"),
+            ("DIAMNet", "DMPNN", "circular_lstm"))
 MEM_TIMED = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
-             ("SumMemAttnPredictNet", "DMPNN", "mean"),
-             ("MaxMemAttnPredictNet", "DMPNN", "mean"),
              ("DIAMNet", "DMPNN", "mean"),
              ("DIAMNet", "DMPNN", "circular_lstm"))
 MEM_KW = dict(ATTN_KW, pred_mem_len=4)
@@ -446,6 +490,32 @@ MEM_NETS = ("MeanMemAttnPredictNet", "SumMemAttnPredictNet",
             "MaxMemAttnPredictNet", "DIAMNet")
 # cuDNN's recurrent kernels (their names hold one of these, lower case)
 RNN_KERNELS = ("rnn", "lstm")
+
+# --- phase 18: scale-out ----------------------------------------------------
+# DIST_STEPS data-parallel steps of the flagship at bsz SCM_BSZ, its loss
+# weights (phase 11's timing ones) and learning rate; the later steps'
+# losses against the one-rank step's within DP_LATER_LOSS_REL relative:
+# the states part by the first step's last-bit differences, which
+# amsgrad's per-element normalisation carries into its next updates
+DIST_STEPS = 3
+DP_SCAL, DP_LR = (0.2, 0.1, 0.05, 1e-4), 1e-3
+DP_LATER_LOSS_REL = 1e-4
+# EP's f32 gradients: where a leaky ReLU's input lies within float32
+# rounding of zero, the EP step and the one-rank step (which sum in
+# other orders) may take different slopes (1 or 1/5.5) there, and the
+# gradients then part by far more than rounding (one PubMed node's
+# input 1.04e-7 from zero moved node_emb's gradient 6.5 times phase 5's
+# bound, NVIDIA H100). So where the two runs put such inputs on
+# different sides of zero, the f32 gradients are held against the
+# one-rank step taken again on the EP step's side of them, provided
+# there are at most MAX_FLIPS and each lies, in both runs, within
+# FLIP_TOL of zero, as a share of its tensor's largest magnitude over the
+# real rows (about one float32 unit in the last place of that magnitude:
+# the input is a difference of BatchNorm-scaled values of that size).
+# More flips, or one further from zero, fail as a fault of the EP path.
+FLIP_TOL, MAX_FLIPS = 1e-7, 8
+# the edge-partitioned backbones (DMPNN timed, the others one step)
+EP_BACKBONES = ("DMPNN", "CompGCN", "RGCN", "RGIN")
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -1588,13 +1658,13 @@ PRED_NET_ATTRS = ("pred_net", "pred_net_v", "pred_net_e")
 
 
 @contextlib.contextmanager
-def pred_net_inputs(model, feed=None):
+def pred_net_inputs(model, feed=None, dtype=None):
     """Within it, each predict net of `model` (its attributes of
     PRED_NET_ATTRS) records the floating inputs of its call (the
     pattern's and the graph's rows, float64 copies on the CPU) in the
     yielded dict under "<attribute>.<position>"; with `feed` (such a
-    dict) it takes those instead of its own, in its own inputs' dtype
-    and on their device."""
+    dict) it takes those instead of its own, on their device and in
+    `dtype` (default: its own inputs' dtype)."""
     seen, hooks = {}, []
 
     def pre(name):
@@ -1604,7 +1674,8 @@ def pred_net_inputs(model, feed=None):
                 if torch.is_tensor(a) and a.is_floating_point():
                     key = f"{name}.{i}"
                     if feed is not None:
-                        args[i] = feed[key].to(device=a.device, dtype=a.dtype)
+                        args[i] = feed[key].to(device=a.device,
+                                               dtype=dtype or a.dtype)
                     seen[key] = args[i].detach().double().cpu()
             return tuple(args)
         return hook
@@ -1620,15 +1691,34 @@ def pred_net_inputs(model, feed=None):
             h.remove()
 
 
-def scm_outputs_from(model, batch, feed) -> dict:
-    """pred_c/v/e (float64, on the CPU) of a float32 train-mode forward of
-    a copy of `model` (on the CPU) whose predict nets take the inputs
-    `feed` (pred_net_inputs') in place of their own."""
-    m = copy.deepcopy(model)
+def scm_outputs_from(cfg, model, batch, feed, dtype=torch.float32) -> dict:
+    """pred_c/v/e (float64, on the CPU) of a train-mode forward in
+    `dtype` of a copy of `model` (on the CPU) whose predict nets take the
+    inputs `feed` (pred_net_inputs') in place of their own."""
+    m = copy.deepcopy(model).to(dtype)
     pattern, graph = batch[:2]
+    # EdgeSeqModel rounds its parameters for any dtype but float32
+    kw = ({"params_rounded": True}
+          if cfg.rep_net in SEQ_NETS and dtype != torch.float32 else {})
     with torch.no_grad(), pred_net_inputs(m, feed):
-        out = m(pattern, graph, train=True, dtype=torch.float32)
+        out = m(pattern, graph, train=True, dtype=dtype, **kw)
     return {k: out[k].double() for k in ("pred_c", "pred_v", "pred_e")
+            if out[k] is not None}
+
+
+def scm_card_outputs_f64(card, batch, feed) -> dict:
+    """pred_c/v/e (float64, on the CPU) of a train-mode forward of a copy
+    of the card's model whose predict nets run in float64 on the card,
+    fed `feed` (the card's float32 inputs to them) in float64; the rest
+    of the model runs in float32 (K3 has no float64 build)."""
+    m = copy.deepcopy(card)
+    for name in PRED_NET_ATTRS:
+        if getattr(m, name, None) is not None:
+            getattr(m, name).double()
+    pattern, graph = batch[:2]
+    with torch.no_grad(), pred_net_inputs(m, feed, torch.float64):
+        out = m(pattern, graph, train=True, dtype=torch.float32)
+    return {k: out[k].double().cpu() for k in ("pred_c", "pred_v", "pred_e")
             if out[k] is not None}
 
 
@@ -1674,13 +1764,23 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
     2.6e-3 apart (bsz 16 on an NVIDIA H100 80GB HBM3: 178.18 on the card,
     178.65 on the CPU, 180.04 in f32), and SumAttnPredictNet's over DMPNN
     ~12 % above it and 0.45 % apart (9.964e9 on the card, 1.0009e10 on
-    the CPU, 8.905e9 in f32). With f64_slack each f32 bound
-    (outputs, loss, gradients) grows by twice the CPU's own float32 error
-    on that tensor (scm_f64_errors), and the outputs are held in two
+    the CPU, 8.905e9 in f32). With f64_slack the loss's and each
+    gradient's f32 bound grows by twice the CPU's own float32 error on
+    that tensor (scm_f64_errors), and the outputs are held in two
     stages: the predict nets' inputs on the card against the CPU's, under
-    the outputs' rule, and the card's outputs, under their bound as it
-    was, against the CPU's model whose predict nets take the card's
-    inputs (scm_outputs_from). The attention nets' sparsemax
+    the outputs' rule so widened, and the card's outputs against the
+    CPU's model whose predict nets take the card's inputs
+    (scm_outputs_from), the bound widened by each device's own float32
+    error there: the CPU's against a float64 run of it, the card's
+    against a float64 run of the card's predict nets on the same inputs
+    (scm_card_outputs_f64). |card - CPU| <= |card - f64| + |f64 - CPU|;
+    what the check still holds is that the two float64 runs agree within
+    SCM_F32_OUT_REL of the output's scale. (The whole model has no
+    float64 run on the card: K3 has no float64 build.) Before: twice the
+    CPU's own error; DIAMNet circular_lstm's pred_v sat at 0.79-0.92 of
+    that, since cuDNN's float32 LSTM is ~10x further from float64 than
+    the CPU's and torch's native CUDA LSTM (lstm_f64_errors). The
+    attention nets' sparsemax
     weights are differences of large scores, so a predict net turns its
     inputs' last-bit differences into ~1e-4 of its output: over DMPNN at
     phase 16's seed (bsz 16, NVIDIA H100 80GB HBM3, 700 W) the card's
@@ -1692,7 +1792,7 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
     model = scm_model(cfg, seed)
     card = copy.deepcopy(model).to(dev)
     dev_batch = [x.to(dev) for x in batch]
-    res, inputs = {}, {}
+    res, inputs, own_fed = {}, {}, {}
     for amp in amps:
         with pred_net_inputs(model) as cpu_in:
             res[("cpu", amp)] = scm_loss_and_grads(model, batch, amp)
@@ -1710,7 +1810,17 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
     if f64_slack:
         own = scm_f64_errors(cfg, model, batch, res[("cpu", False)],
                              inputs["cpu"])
-        out_ref = scm_outputs_from(model, batch, inputs["card"])
+        out_ref = scm_outputs_from(cfg, model, batch, inputs["card"])
+        # each device's own float32 error on the predict nets fed the
+        # card's inputs: the CPU's against its float64 run, the card's
+        # against the card's float64 run of its predict nets
+        cpu64 = scm_outputs_from(cfg, model, batch, inputs["card"],
+                                 torch.float64)
+        card64 = scm_card_outputs_f64(card, dev_batch, inputs["card"])
+        card32 = res[("card", False)][0]
+        own_fed = {k: (out_ref[k] - cpu64[k]).abs().max().item()
+                   + (card32[k].double() - card64[k]).abs().max().item()
+                   for k in out_ref}
         for k, cpu in inputs["cpu"].items():
             err = (inputs["card"][k] - cpu).abs().max().item()
             bound = SCM_F32_OUT_REL * cpu.abs().max().item() + 2 * own[k]
@@ -1775,7 +1885,13 @@ def scm_card_vs_cpu(cfg, dev, seed, bsz=SCM_BSZ,
                          + 2.0 ** -8 * scale)
             elif k in po:
                 err = (got.double() - out_ref[k]).abs().max().item()
-                bound = SCM_F32_OUT_REL * scale + 2 * own.get(k, 0.0)
+                bound = SCM_F32_OUT_REL * scale + own_fed.get(
+                    k, 2 * own.get(k, 0.0))
+                if f64_slack:
+                    before = SCM_F32_OUT_REL * scale + 2 * own[k]
+                    staged += (f"; {k} at {err / bound:.3f} of its bound "
+                               f"(under the rule before it: "
+                               f"{err / before:.3f})")
             else:
                 err = (got - cpu).abs().max().item()
                 bound = (TRAIN_F32_REL * scale + TRAIN_F32_GLOBAL * gmax
@@ -1833,17 +1949,20 @@ def kernel_share(events, calls, names) -> float:
         calls) / 1e3
 
 
-def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
-               eval_bsz=SCM_INFER_BSZ, shares=()) -> dict:
+def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ,),
+               eval_bsz=SCM_INFER_BSZ, shares=(), profile=True) -> dict:
     """The flagship train step (make_train_step: auto ~128-pair chunks)
-    at bsz 128 and 2048, f32 and amp bf16, and the eval step at bsz 512:
+    at the bszs given (bsz 128), f32 and amp bf16, and the eval step at
+    bsz 512:
     CUDA-event ms (median of 5 calls, wrapper and host work included),
     torch.profiler device ms with K3's share (and, per group of names in
     `shares`, that of the kernels whose names hold one of the group's),
     pairs/s and edges/s (real graph
     and pattern edges), each step's peak device memory; each step's K3
     launches against the derived count. An LRP batch's perm envelope
-    (p_max, pattern and graph) is printed."""
+    (p_max, pattern and graph) is printed. profile=False leaves out
+    torch.profiler (the device ms and shares): events, memory and
+    launches only."""
     base = scm_model(cfg, seed)
     out = {}
     tag = "" if cfg.rep_net == "DMPNN" else f"{cfg.rep_net} "
@@ -1890,6 +2009,15 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
                   f"{want} ({chunks} chunks)")
             check(np.isfinite(losses["total"].item()), f"SCM {name}: loss")
             ev = kernel_bench.cuda_median_ms(run, 5, warmup=0)
+            if not profile:
+                out[name] = dict(event_ms=ev, pairs_s=bsz / ev * 1e3,
+                                 chunks=chunks, peak_gib=peak)
+                print(f"scm {name}: step {ev:.3f} ms (CUDA events, median "
+                      f"of 5; not profiled); {chunks} chunks, {want} K3 "
+                      f"launches per step; peak device memory {peak:.3f} "
+                      "GiB")
+                del model, step
+                continue
             dv, k3, events = scm_profile(run)
             extra, text = share_of(events, dv, 3)
             out[name] = dict(event_ms=ev, device_ms=dv, k3_ms=k3,
@@ -1932,6 +2060,13 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ, SCM_BIG_BSZ),
               and bool(torch.isfinite(pred_c).all()), f"SCM {name}: pred_c")
         ev = kernel_bench.cuda_median_ms(lambda: eval_step(pattern, graph),
                                          10, warmup=0)
+        if not profile:
+            out[name] = dict(event_ms=ev, samples_s=eval_bsz / ev * 1e3,
+                             peak_gib=peak)
+            print(f"scm {name}: forward {ev:.3f} ms (CUDA events, median of "
+                  f"10; not profiled); {want} K3 launches; peak device "
+                  f"memory {peak:.3f} GiB")
+            continue
         dv, k3, events = scm_profile(lambda: eval_step(pattern, graph))
         extra, text = share_of(events, dv, 3)
         out[name] = dict(event_ms=ev, device_ms=dv, k3_ms=k3,
@@ -2493,8 +2628,9 @@ def phase_scm_attn(dev, seed, data_dir) -> tuple:
     """Phase 16: per attention predict net of ATTN_NETS at the
     flagship's configuration, a bsz-16 batch on the card against the CPU
     (phase 14's checks, the f32 bounds widened by the CPU's own float32
-    error), the train step at bsz 128 and the eval forward at 512
-    (events, device ms, the sparsemax kernels' share, peak memory); the
+    error), and its train step at bsz 128 and eval forward at 512
+    (events, peak memory; for ATTN_TIMED device ms and the sparsemax
+    kernels' share); the
     ER command line with --pred_net MeanAttnPredictNet for one epoch on
     phase 12's data (data_dir), then cli/scm_evaluate; and the remat
     repair on the card -> (results, paths)."""
@@ -2508,7 +2644,8 @@ def phase_scm_attn(dev, seed, data_dir) -> tuple:
                                 f64_slack=True)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
                             train_bszs=(SCM_BSZ,),
-                            shares=(SPARSEMAX_KERNELS,))
+                            shares=(SPARSEMAX_KERNELS,),
+                            profile=(pred, rep) in ATTN_TIMED)
         out[f"{pred}/{rep}"] = dict(
             worst=worst, timing=timing,
             step_launches=k3_launches(cfg, train=True))
@@ -2527,12 +2664,60 @@ def phase_scm_attn(dev, seed, data_dir) -> tuple:
     return out, paths
 
 
+def lstm_f64_errors(dev, seed) -> dict:
+    """DIAMNet circular_lstm at phase 17's configuration, seed and bsz 16:
+    each window LSTM (WindowLSTMMem, the node and the edge head) run
+    again on the inputs it had in a float32 forward on the CPU, in float32
+    by cuDNN's LSTM, by torch's own CUDA LSTM (cuDNN disabled in a scoped
+    context) and by the CPU's, each against a float64 run on the CPU; the
+    largest distance over the slots as a share of the float64 slots'
+    largest magnitude, and as a share of phase 16's rule for outputs
+    (SCM_F32_OUT_REL of it) -> {head: {run: share}}."""
+    cfg = scm_flagship_config().replace(
+        rep_net="DMPNN", pred_net="DIAMNet", pred_mem_init="circular_lstm",
+        **MEM_KW)
+    pattern, graph, *_ = scm_batch(SCM_NET_CMP_BSZ, seed, cfg)
+    model = scm_model(cfg, seed)
+    seen, hooks = {}, []
+    for name in PRED_NET_ATTRS:
+        net = getattr(model, name, None)
+        if net is not None and isinstance(getattr(net, "mem_layer", None),
+                                          WindowLSTMMem):
+            hooks.append(net.mem_layer.register_forward_pre_hook(
+                lambda mod, args, name=name: seen.__setitem__(
+                    name, (mod, [a.detach() for a in args]))))
+    with torch.no_grad():
+        model(pattern, graph, train=True, dtype=torch.float32)
+    for h in hooks:
+        h.remove()
+    out = {}
+    with torch.no_grad():
+        for name, (mod, (x, mask)) in seen.items():
+            ref = copy.deepcopy(mod).double()(x.double(), mask)[0]
+            scale = ref.abs().max().item()
+            card = copy.deepcopy(mod).to(dev)
+            xd, md = x.to(dev), mask.to(dev)
+            runs = {"cpu": mod(x, mask)[0], "cudnn": card(xd, md)[0]}
+            with torch.backends.cudnn.flags(enabled=False):
+                runs["cuda_native"] = card(xd, md)[0]
+            out[name] = {k: (v.double().cpu() - ref).abs().max().item()
+                         / scale for k, v in runs.items()}
+            print(f"scm mem: DIAMNet circular_lstm {name} window LSTM "
+                  f"[{x.shape[0]} x {mod.mem_len} windows of "
+                  f"{x.shape[1]} rows] f32 against float64, of the "
+                  "slots' largest magnitude: " + ", ".join(
+                      f"{k} {v:.3e} ({v / SCM_F32_OUT_REL:.3f} of "
+                      f"{SCM_F32_OUT_REL:g})" for k, v in out[name].items()))
+    return out
+
+
 def phase_scm_mem(dev, seed, data_dir) -> tuple:
     """Phase 17: per memory predict net and init of MEM_CMP at the
     flagship's configuration, a bsz-16 batch on the card against the CPU
-    (phase 16's rule); per one of MEM_TIMED the train step at bsz 128
-    and the eval forward at 512 (events, device ms, the sparsemax's and
-    cuDNN's RNN kernels' shares, peak memory); the ER command line with
+    (phase 16's rule); per one of MEM_STEP the train step at bsz 128
+    and the eval forward at 512 (events, peak memory; for MEM_TIMED
+    device ms and the sparsemax's and cuDNN's RNN kernels' shares); the
+    ER command line with
     --pred_net DIAMNet --pred_mem_init circular_lstm for one epoch on
     phase 12's data (data_dir), then cli/scm_evaluate -> (results,
     paths)."""
@@ -2543,6 +2728,8 @@ def phase_scm_mem(dev, seed, data_dir) -> tuple:
         return scm_flagship_config().replace(
             rep_net=rep, pred_net=pred, pred_mem_init=init, **MEM_KW)
 
+    out["lstm_f64"] = lstm_f64_errors(
+        dev, seed + 10 * MEM_CMP.index(("DIAMNet", "DMPNN", "circular_lstm")))
     for i, key in enumerate(MEM_CMP):
         t1 = time.perf_counter()
         cfg = config(*key)
@@ -2552,13 +2739,14 @@ def phase_scm_mem(dev, seed, data_dir) -> tuple:
             step_launches=k3_launches(cfg, train=True))
         print(f"scm mem: {' '.join(key)} card vs cpu took "
               f"{time.perf_counter() - t1:.1f} s")
-    for i, key in enumerate(MEM_TIMED):
+    for i, key in enumerate(MEM_STEP):
         t1 = time.perf_counter()
         cfg = config(*key)
         out.setdefault("/".join(key), dict(
             step_launches=k3_launches(cfg, train=True)))["timing"] = \
             scm_timing(cfg, dev, seed + 10 * i + 1, train_bszs=(SCM_BSZ,),
-                       shares=(SPARSEMAX_KERNELS, RNN_KERNELS))
+                       shares=(SPARSEMAX_KERNELS, RNN_KERNELS),
+                       profile=key in MEM_TIMED)
         print(f"scm mem: {' '.join(key)} timing took "
               f"{time.perf_counter() - t1:.1f} s")
     root = tempfile.mkdtemp(prefix="scm_mem_")
@@ -2574,9 +2762,603 @@ def phase_scm_mem(dev, seed, data_dir) -> tuple:
     return out, paths
 
 
+# --- phase 18: scale-out over torch.distributed ----------------------------
+
+def dist_profile(world, fn, calls=3):
+    """Device ms per call of fn by torch.profiler on rank 0 (None on the
+    other ranks, which call fn as often: its collectives pair with rank
+    0's)."""
+    if world.rank == 0:
+        return scm_profile(fn, calls)[0]
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return None
+
+
+def dist_dp_steps(world, spec, dev) -> dict:
+    """This rank's share of the flagship batch (dp.shard_batch) through
+    DIST_STEPS data-parallel train steps: the losses, the first step's
+    gradients (summed over the ranks), each step's K3 launches, the state
+    after the steps, then the step's CUDA-event ms (median of 5) and
+    device ms (rank 0's torch.profiler, 3 steps)."""
+    model = copy.deepcopy(spec["model"]).to(dev)
+    step = scm_driver.make_train_step(
+        model, scm_driver.make_optimizer(model.parameters(), DP_LR),
+        return_weights="nodeedge", world=world)
+    scm_driver.dp_replicate_state(step)
+    mine = [x.to(dev) for x in dp.shard_batch(world, *spec["batch"])]
+    losses, launches, grads = [], [], None
+    for s in range(DIST_STEPS):
+        sk.reset_launch_counts()
+        out = step(*mine, *DP_SCAL)
+        torch.cuda.synchronize()
+        launches.append(dict(sk.LAUNCHES))
+        losses.append(float(out["total"]))
+        if s == 0:
+            grads = {k: p.grad.float().cpu().numpy()
+                     for k, p in model.named_parameters()}
+    state = {k: v.cpu().numpy() for k, v in model.state_dict().items()}
+
+    def run():
+        return step(*mine, *DP_SCAL)
+    ev = kernel_bench.cuda_median_ms(run, 5, warmup=1)
+    return dict(losses=losses, launches=launches, grads=grads, state=state,
+                rows=mine[2].shape[0], event_ms=ev,
+                device_ms=dist_profile(world, run))
+
+
+def bn_hooks(model, record=None, force=None) -> list:
+    """Forward hooks on the BatchNorms of `model`'s update MLPs (their
+    outputs are the leaky ReLU's inputs): each output goes into `record`
+    (name -> tensor), or, with `force` (name -> (rows, cols, signs)),
+    those elements are put on the given side of zero (their magnitude
+    kept, the gradient passed as it is) -> the hooks' handles."""
+    handles = []
+    for name, mod in model.named_modules():
+        if not (isinstance(mod, MaskedBatchNorm) and name.endswith("mlp.bn")):
+            continue
+
+        def hook(mod, args, out, name=name):
+            if record is not None:
+                record[name] = out.detach()
+            if force is None or name not in force:
+                return None
+            rows, cols, signs = (torch.as_tensor(a, device=out.device)
+                                 for a in force[name])
+            want = out.detach().clone()
+            want[rows, cols] = signs.to(out.dtype) * want[rows, cols].abs()
+            return out + (want - out.detach())
+        handles.append(mod.register_forward_hook(hook))
+    return handles
+
+
+def ep_loss_grads(model, sub, amp, world=None, record=None, force=None):
+    """Loss, float32 gradients (numpy) and the kernel launches of one
+    train-mode forward and backward of a copy of `model`, over the ranks
+    of `world` where given (each rank seeds 1 / size, the gradients
+    summed over the ranks); record and force are bn_hooks'."""
+    m = copy.deepcopy(model)
+    handles = bn_hooks(m, record, force)
+    sk.reset_launch_counts()
+    with split_rows(m, world):
+        out = apply_unc_forward(m, sub, amp=amp, train=True)
+        loss = m.unsupervised_loss(
+            out, sub["edge_type"], sub["edge_mask"], sub["samples"],
+            sub["labels"], sub["sample_mask"], sub["node_mask"])
+        (loss / (world.size if world else 1)).backward()
+    if world is not None:
+        all_reduce_grads(m.parameters(), world)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    return (loss.item(), {k: p.grad.float().cpu().numpy()
+                          for k, p in m.named_parameters()},
+            dict(sk.LAUNCHES))
+
+
+def near_zero(record, node_mask, n_real) -> dict:
+    """The real rows' elements of each update MLP's BatchNorm output
+    (bn_hooks' record) within FLIP_TOL of the real rows' largest
+    magnitude of zero: where two float32 runs that round the forward
+    differently may give the leaky ReLU other slopes -> name -> (rows,
+    cols, values, largest magnitude)."""
+    out = {}
+    for name, x in record.items():
+        real = (torch.as_tensor(node_mask, device=x.device)
+                if x.shape[0] == len(node_mask)
+                else torch.arange(x.shape[0], device=x.device) < n_real)
+        scale = x[real].abs().max().item()
+        near = (x.abs() <= FLIP_TOL * scale) & real[:, None]
+        rows, cols = torch.nonzero(near, as_tuple=True)
+        out[name] = (rows.cpu().numpy(), cols.cpu().numpy(),
+                     x[rows, cols].cpu().numpy(), scale)
+    return out
+
+
+def shard_values(record, near, shard_rows) -> dict:
+    """This rank's BatchNorm outputs at the elements of `near` it holds:
+    node rows (every rank holds them) as they are, edge rows through
+    shard_rows (global real edge -> this rank's row, -1 where another
+    rank holds it) -> name -> values (0 where not held)."""
+    out = {}
+    for name, (rows, cols, _, _) in near.items():
+        x = record[name].cpu().numpy()
+        local = shard_rows[rows] if "emlp" in name else rows
+        held = local >= 0
+        out[name] = np.zeros(len(rows), x.dtype)
+        out[name][held] = x[local[held], cols[held]]
+    return out
+
+
+def dist_ep(world, spec, dev) -> dict:
+    """This rank's slice of the PubMed batch with its own plans: per
+    backbone the loss, gradients and launches, f32 and amp bf16; then
+    DMPNN's edge-partitioned train step, CUDA-event ms (median of 5) and
+    device ms (rank 0's torch.profiler, 3 steps), and the [V, H]
+    all-reduce's ms (CUDA events, median of 10)."""
+    shard = attach_ep_csr_plans(shard_sub(spec["padded"], world),
+                                sender_plan=True)
+    sub = to_device(shard, dev)
+    out = {"n_real": shard["n_real"], "grads": {}}
+    for name, model in spec["models"].items():
+        m = copy.deepcopy(model).to(dev)
+        record = {}
+        out["grads"][name] = {amp: ep_loss_grads(
+            m, sub, amp, world, record=None if amp else record)
+            for amp in (False, True)}
+        if name in spec["near"]:
+            # this rank's real edges are the run of the stream from lo
+            n = int(spec["padded"]["edge_mask"].sum())
+            lo = min(world.rank * -(-n // world.size), n)
+            rows = np.full(n, -1)
+            rows[lo: lo + shard["n_real"]] = np.arange(shard["n_real"])
+            out.setdefault("near", {})[name] = shard_values(
+                record, spec["near"][name], rows)
+    m = copy.deepcopy(spec["models"]["DMPNN"]).to(dev)
+    step = make_ep_train_step(m, make_unc_optimizer(m, LR, 100, GRAD_NORM),
+                              world)
+    out["event_ms"] = kernel_bench.cuda_median_ms(lambda: step(sub), 5,
+                                                  warmup=1)
+    out["device_ms"] = dist_profile(world, lambda: step(sub))
+    x = torch.randn(PUBMED["num_nodes"], N_HIDDEN, device=dev)
+    out["allreduce_ms"] = kernel_bench.cuda_median_ms(
+        lambda: all_reduce_sum(x, world), 10, warmup=2)
+    return out
+
+
+def dist_dp_epoch(world, spec, dev) -> dict:
+    """train_epoch for one epoch over the ranks (every rank the same
+    batches, its own rows), counted from zero: the loss, the steps, K3's
+    launches and the state after it."""
+    model = build_model(spec["cfg"], device=dev, seed=spec["seed"])
+    step = scm_driver.make_train_step(
+        model, scm_driver.make_optimizer(model.parameters(),
+                                         SCM_LEARN["lr"]),
+        return_weights="nodeedge", world=world)
+    scm_driver.dp_replicate_state(step)
+    sampler = BucketSampler(spec["data"].sizes(), ["g_len", "p_len"],
+                            SCM_LEARN["bsz"], shuffle=True, seed=spec["seed"])
+    sk.reset_launch_counts()
+    rec = scm_driver.train_epoch(step, spec["data"], sampler,
+                                 {"train_epochs": 1, "neg_pred_slp": 0.2,
+                                  "match_loss_w": 0.1,
+                                  "pred_return_weights": "nodeedge"}, 0)
+    torch.cuda.synchronize()
+    return dict(loss=rec["total"], steps=len(sampler),
+                launches=dict(sk.LAUNCHES), seconds=rec["seconds"],
+                state={k: v.cpu().numpy()
+                       for k, v in model.state_dict().items()})
+
+
+def dist_train_unc(world, spec, dev) -> dict:
+    """train_unc as this rank of `world` on the first BACKBONE_LINKS
+    links (n_epochs=1) and its export, counted from zero: the launches,
+    rank 0's epochs, the embeddings' checksum and the state after it."""
+    model = copy.deepcopy(spec["model"]).to(dev)
+    epochs = []
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb, cov = train_unc(
+        model, spec["triplets"], PUBMED["num_nodes"], PUBMED["num_rels"],
+        lr=LR, negative_rate=NEG, graph_batch_size=GBS,
+        graph_split_size=SPLIT, sampler="randomwalk", sample_depth=DEPTH,
+        sample_width=WIDTH, n_epochs=1, grad_norm=GRAD_NORM,
+        seed=spec["seed"], on_epoch=epochs.append, log=lambda msg: None,
+        world=world)
+    torch.cuda.synchronize()
+    return dict(launches=dict(sk.LAUNCHES), epochs=epochs, coverage=cov,
+                seconds=time.perf_counter() - t0,
+                emb_finite=bool(np.isfinite(emb).all()),
+                emb_sum=float(np.abs(emb).sum()), emb_shape=emb.shape,
+                state={k: v.cpu().numpy()
+                       for k, v in model.state_dict().items()})
+
+
+def dist_rank(world, spec) -> dict:
+    """One rank of phase 18: the DP steps, the EP gradients and step, and
+    (spec["runs"]) train_epoch and train_unc over the ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = world.device
+    t0 = time.perf_counter()
+    out = {"dp": dist_dp_steps(world, spec["dp"], dev),
+           "ep": dist_ep(world, spec["ep"], dev)}
+    if spec.get("runs"):
+        out["dp_epoch"] = dist_dp_epoch(world, spec["runs"]["dp_epoch"], dev)
+        out["train_unc"] = dist_train_unc(world, spec["runs"]["train_unc"],
+                                          dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def library_times(fn, label) -> tuple:
+    """(event ms, device ms) of one PyTorch call, as kernel_bench.time_call
+    measures them; the device ms None where torch.profiler records no
+    device time for it (late in a long process CUPTI has dropped a whole
+    trace of index_select, three traces running, on an H100)."""
+    event = kernel_bench.cuda_median_ms(fn, 30)
+    try:
+        return event, kernel_bench.device_ms(fn, 30)
+    except RuntimeError as err:
+        print(f"timing {label}: {err}; its device ms not measured")
+        return event, None
+
+
+def dist_kernels(dev, dp_batch, padded, seed) -> dict:
+    """K1 and K2 against their plain versions at the EP shard shape (rank
+    0's slice of the PubMed batch, 2 ranks: its real edges into rows over
+    the full V), K3 at the DP rank's shape (64 flagship pairs: 4,096 node
+    rows, 32,768 edge rows, H = 64), f32; each timed beside its plain
+    version, one PyTorch call and its HBM bound."""
+    world = dist.World(0, 2, dev, "gloo")
+    shard = attach_ep_csr_plans(shard_sub(padded, world))
+    n, v = shard["n_real"], len(shard["node_mask"])
+    e = len(shard["receivers"])
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    row_ptr, idx = t(shard["sk_rowptr"]), t(shard["receivers"])
+    w = 2 * N_HIDDEN + 1
+    out = {}
+    with torch.inference_mode():
+        msg = t(rng.normal(size=(e, N_HIDDEN)).astype(np.float32))
+        err = check_k1(msg, row_ptr, (0, 0))
+        nbytes = (n + v) * N_HIDDEN * 4 + (v + 1) * 4
+        res = dict(err=err, bound_ms=hbm_ms(nbytes), **timed_pair(
+            f"float32: K1 EP shard n_real={n} of E={e} V={v} W={N_HIDDEN}",
+            lambda: sk.segment_sum_sorted(msg, row_ptr),
+            lambda: sk.segment_sum_sorted_plain(msg, row_ptr),
+            f" (max abs err {err:.3e})"))
+        res["library_ms"], res["library_device_ms"] = library_times(
+            lambda: torch.zeros(v, N_HIDDEN, device=dev).index_add_(
+                0, idx[:n], msg[:n]), "K1 EP shard index_add_")
+        out["K1"] = res
+        table = t(rng.normal(size=(v, w)).astype(np.float32))
+        err = check_k2(table, idx, n)
+        # the table's rows that the rank's real edges name, read once
+        # (about half the table: the rank's receivers), the real edges'
+        # indices, the whole output written once (the pad tail's zero
+        # rows too)
+        rows = int(idx[:n].unique().numel())
+        nbytes = (rows + e) * w * 4 + n * 8
+        res = dict(err=err, bound_ms=hbm_ms(nbytes), **timed_pair(
+            f"float32: K2 EP shard n_real={n} of E={e} V={v} ({rows} "
+            f"rows read) W={w}",
+            lambda: sk.gather_rows_sorted(table, idx, n),
+            lambda: sk.gather_rows_sorted_plain(table, idx, n)))
+        # one index_select of the real edges' rows (it leaves out the pad
+        # tail's zero rows, which K2 writes: half the output here)
+        res["library_ms"], res["library_device_ms"] = library_times(
+            lambda: table.index_select(0, idx[:n]), "K2 EP shard index_select")
+        out["K2"] = res
+        for name in ("K1", "K2"):
+            r = out[name]
+            lib = r["library_device_ms"]
+            print(f"timing float32: {name} EP shard: bound "
+                  f"{r['bound_ms']:.4f} ms, "
+                  f"{100 * r['bound_ms'] / r['device_ms']:.1f} % of it by "
+                  f"device time; library {r['library_ms']:.4f} ms event, "
+                  + ("device not measured" if lib is None
+                     else f"{lib:.4f} ms device"))
+    graph = dp_batch[1]
+    half = SCM_BSZ // 2
+    flat = scm_ops.flat_index(graph.receivers[:half], 64,
+                              graph.edge_mask[:half]).to(dev)
+    out["K3"] = k3_timed("DP rank", flat, half * 64, 64, torch.float32, dev,
+                         rng)
+    return out
+
+
+def dist_inputs(seed, graph, triplets) -> tuple:
+    """Phase 18's data, made from the seed: the flagship batch at bsz
+    SCM_BSZ and the PubMed training batch with its sender sort, its edge
+    envelope a multiple of 2 -> (dp_batch, padded)."""
+    v = graph.num_nodes
+    padded = sample_batch(
+        graph, triplets[:GBS], "randomwalk", DEPTH, WIDTH, SPLIT, NEG, v,
+        pad_e_max(min(v * WIDTH, graph.num_edges), 2), GBS * (1 + NEG),
+        np.random.default_rng(seed + 2), send_keys=True)
+    return scm_batch(SCM_BSZ, seed + 1, scm_flagship_config()), padded
+
+
+def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
+    """Phase 18: data-parallel SCM training (the flagship, bsz 128: 64
+    pairs a rank) and edge-partitioned UNC training (the PubMed batch,
+    DMPNN at full width, one step of each other backbone), each as two
+    ranks on cuda:0 over gloo and as a world of one over NCCL, held
+    against the one-rank step on the card: DP under phase 11's train
+    bounds (the later steps' losses under DP_LATER_LOSS_REL), EP under
+    phase 5's f32 bounds and amp rule; the ranks' states bit for bit
+    equal; K3's launches per DP rank and step, K1's and K2's per EP
+    rank; K1 and K2 at the EP shard shape and K3 at the DP rank's shape
+    against their plain versions; then (gloo) train_epoch for one epoch
+    and train_unc on BACKBONE_LINKS links over the two ranks, launches
+    counted from zero. Two ranks sharing one card time no scale-out:
+    their step times are printed as what they are. -> (results, paths,
+    kernel rows). `kernels` are dist_kernels' rows of the same data
+    (dist_inputs), which main measures early in the run: late in a long
+    process CUPTI has dropped whole traces."""
+    t0 = time.perf_counter()
+    cfg = scm_flagship_config()
+    dp_model = scm_model(cfg, seed)
+    dp_batch, padded = dist_inputs(seed, graph, triplets)
+    models = {b: make_model(PUBMED["num_nodes"], PUBMED["num_rels"],
+                            seed + 3 + i, dropout=0.0, backbone=b)
+              for i, b in enumerate(EP_BACKBONES)}
+
+    # the one-rank steps on the card
+    m = copy.deepcopy(dp_model).to(dev)
+    step = scm_driver.make_train_step(
+        m, scm_driver.make_optimizer(m.parameters(), DP_LR),
+        return_weights="nodeedge")
+    batch = [x.to(dev) for x in dp_batch]
+    ref_losses = []
+    for s in range(DIST_STEPS):
+        ref_losses.append(float(step(*batch, *DP_SCAL)["total"]))
+        if s == 0:
+            ref_grads = {k: p.grad.float().cpu().numpy()
+                         for k, p in m.named_parameters()}
+    ref_state = {k: x.cpu().numpy() for k, x in m.state_dict().items()}
+    run = lambda: step(*batch, *DP_SCAL)  # noqa: E731
+    ref_dp = dict(event_ms=kernel_bench.cuda_median_ms(run, 5, warmup=1),
+                  device_ms=scm_profile(run)[0])
+    sub = to_device(sk.attach_csr_plan(padded, sender_plan=True), dev)
+    n_real = int(padded["edge_mask"].sum())
+    ref_ep, near = {}, {}
+    for b, mm in models.items():
+        record = {}
+        ref_ep[b] = {amp: ep_loss_grads(copy.deepcopy(mm).to(dev), sub, amp,
+                                        record=None if amp else record)
+                     for amp in (False, True)}
+        if record:
+            near[b] = near_zero(record, padded["node_mask"], n_real)
+        del record
+    m = copy.deepcopy(models["DMPNN"]).to(dev)
+    ustep = make_unc_train_step(m, make_unc_optimizer(m, LR, 100, GRAD_NORM))
+    ref_ep_time = dict(event_ms=kernel_bench.cuda_median_ms(
+        lambda: ustep(sub), 5, warmup=1), device_ms=scm_profile(
+        lambda: ustep(sub))[0])
+    del m, step, ustep, batch
+    torch.cuda.empty_cache()
+
+    n_tr = SCM_LEARN["n_train"]
+    learn_cfg = scm_flagship_config().replace(
+        max_ngv=8, max_ngvl=2, max_nge=32, max_ngel=4, max_npv=4,
+        max_npvl=2, max_npe=8, max_npel=4)
+    data = GraphAdjDataset(generate_dataset(
+        n_tr, seed=seed + 5, pv=3, pe=3, gv=8, ge=16, num_vlabels=2,
+        num_elabels=2, p_v_max=4, p_e_max=4, g_v_max=8,
+        g_e_max=16)).add_reversed_edges(2, 2)
+    spec = dict(dp=dict(model=dp_model, batch=dp_batch),
+                ep=dict(padded=padded, models=models, near=near))
+    runs = dict(dp_epoch=dict(cfg=learn_cfg, data=data, seed=seed + 6),
+                train_unc=dict(model=models["DMPNN"],
+                               triplets=triplets[:BACKBONE_LINKS],
+                               seed=seed + 7))
+    print(f"dist: one-rank references took "
+          f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        gloo = dist.launch(dist_rank, 2, backend="gloo",
+                           devices=[str(dev)] * 2,
+                           init_file=os.path.join(tmp, "gloo"),
+                           args=(dict(spec, runs=runs),), timeout=900,
+                           collective_timeout=300)
+        t_gloo = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        nccl = dist.launch(dist_rank, 1, backend="nccl", devices=[str(dev)],
+                           init_file=os.path.join(tmp, "nccl"),
+                           args=(spec,), timeout=600, collective_timeout=300)
+        t_nccl = time.perf_counter() - t1
+    print(f"dist: gloo, two ranks on {dev}: {t_gloo:.1f} s wall (ranks "
+          f"{', '.join(f'{r['seconds']:.1f}' for r in gloo)} s of work); "
+          f"NCCL, a world of one: {t_nccl:.1f} s wall "
+          f"({nccl[0]['seconds']:.1f} s of work)")
+
+    # DP against the one-rank step
+    gmax = max(float(np.abs(g).max()) for g in ref_grads.values())
+    want_k3 = k3_dict(k3_launches(cfg, train=True))
+    worst = {}
+    for label, ranks in (("gloo 2 ranks", gloo), ("nccl 1 rank", nccl)):
+        ratio = 0.0
+        for r, res in enumerate(ranks):
+            d = res["dp"]
+            check(all(x == want_k3 for x in d["launches"]),
+                  f"dist DP {label} rank {r}: K3 launched {d['launches']}, "
+                  f"expected {want_k3} a step")
+            for s, (got, ref) in enumerate(zip(d["losses"], ref_losses)):
+                rel = 1e-5 if s == 0 else DP_LATER_LOSS_REL
+                check(np.isfinite(got) and abs(got - ref) <= rel * abs(ref),
+                      f"dist DP {label} rank {r} step {s}: loss {got} vs "
+                      f"one rank {ref}")
+            for k, g in ref_grads.items():
+                err = float(np.abs(d["grads"][k] - g).max())
+                bound = (TRAIN_F32_REL * float(np.abs(g).max())
+                         + TRAIN_F32_GLOBAL * gmax)
+                check(err <= bound, f"dist DP {label} rank {r} {k}: err "
+                      f"{err:.3e} exceeds {bound:.3e}")
+                ratio = max(ratio, err / bound)
+        worst[f"dp {label}"] = ratio
+        dpar = max(float(np.abs(ranks[0]["dp"]["state"][k] - x).max())
+                   for k, x in ref_state.items())
+        print(f"dist DP {label}: bsz {SCM_BSZ}, {ranks[0]['dp']['rows']} "
+              f"pairs a rank; losses {ranks[0]['dp']['losses']} vs one rank "
+              f"{ref_losses}; step-0 gradients within phase 11's bound "
+              f"(worst at {ratio:.3f} of it); K3 {want_k3} a step on each "
+              f"rank; parameters after {DIST_STEPS} steps within "
+              f"{dpar:.3e} of the one-rank step's")
+    a, b = (r["dp"]["state"] for r in gloo)
+    check(all(np.array_equal(a[k], b[k]) for k in a),
+          "dist DP: the ranks' states differ")
+    print(f"dist DP timing, flagship f32: one rank bsz {SCM_BSZ} "
+          f"{ref_dp['event_ms']:.3f} ms events, {ref_dp['device_ms']:.3f} "
+          f"ms device; two ranks sharing one card over gloo (not a "
+          f"scale-out speed), rank 0's {SCM_BSZ // 2} pairs "
+          f"{gloo[0]['dp']['event_ms']:.3f} ms events, "
+          f"{gloo[0]['dp']['device_ms']:.3f} ms device; NCCL world of one "
+          f"{nccl[0]['dp']['event_ms']:.3f} / "
+          f"{nccl[0]['dp']['device_ms']:.3f}")
+
+    # EP against the one-rank step; the f32 gradients against the one-rank
+    # step taken on the EP step's side of the leaky ReLU inputs whose sign
+    # the two runs differ on (FLIP_TOL, MAX_FLIPS)
+    for b in EP_BACKBONES:
+        want = (DMPNN_STEP_LAUNCHES if b == "DMPNN"
+                else BACKBONE_STEP_LAUNCHES[b])
+        (lc, g32, _), (la, ga, _) = ref_ep[b][False], ref_ep[b][True]
+        for label, ranks in (("gloo 2 ranks", gloo), ("nccl 1 rank", nccl)):
+            ratios, flip_note, gc = {}, "", g32
+            if b in near:
+                force, total, far = {}, 0, 0.0
+                for name, (rows, cols, ref, scale) in near[b].items():
+                    # an edge row is held by one rank, a node row by all
+                    got = (sum(r["ep"]["near"][b][name] for r in ranks)
+                           if "emlp" in name
+                           else ranks[0]["ep"]["near"][b][name])
+                    flip = np.sign(got) != np.sign(ref)
+                    if flip.any():
+                        force[name] = (rows[flip], cols[flip],
+                                       np.sign(got[flip]))
+                        far = max(far, float(np.abs(got[flip]).max()) / scale)
+                    total += int(flip.sum())
+                check(total <= MAX_FLIPS and far <= FLIP_TOL,
+                      f"dist EP {b} {label}: {total} leaky ReLU inputs on "
+                      f"the other side of zero than in the one-rank step, "
+                      f"up to {far:.2e} of their scale from it (at most "
+                      f"{MAX_FLIPS} within {FLIP_TOL:g} are rounding)")
+                if force:
+                    gc = ep_loss_grads(copy.deepcopy(models[b]).to(dev), sub,
+                                       False, force=force)[1]
+                flip_note = (f"; {total} leaky ReLU inputs on the other side "
+                             f"of zero than in the one-rank step (up to "
+                             f"{far:.2e} of their scale from it), the "
+                             "one-rank f32 step taken again on the EP "
+                             "step's side of them")
+            gmax = max(float(np.abs(g).max()) for g in gc.values())
+            for r, res in enumerate(ranks):
+                for amp in (False, True):
+                    ld, gd, launches = res["ep"]["grads"][b][amp]
+                    name = "amp bf16" if amp else "f32"
+                    check(launches == want, f"dist EP {b} {label} rank {r} "
+                          f"{name}: launched {launches}, expected {want}")
+                    ref_l = la if amp else lc
+                    check(np.isfinite(ld) and abs(ld - ref_l) <= (
+                        1e-3 if amp else 1e-5) * abs(ref_l),
+                        f"dist EP {b} {label} rank {r} {name}: loss {ld} "
+                        f"vs one rank {ref_l}")
+                    ratio = 0.0
+                    for k, g in (g32 if amp else gc).items():
+                        scale = float(np.abs(g).max())
+                        if amp:
+                            err = float(np.abs(gd[k] - g).max())
+                            bound = (TRAIN_AMP_FACTOR * float(
+                                np.abs(ga[k] - g).max()) + 2.0 ** -8 * scale)
+                        else:
+                            err = float(np.abs(gd[k] - g).max())
+                            bound = (TRAIN_F32_REL * scale
+                                     + TRAIN_F32_GLOBAL * gmax)
+                        check(err <= bound, f"dist EP {b} {label} rank {r} "
+                              f"{name} {k}: err {err:.3e} exceeds "
+                              f"{bound:.3e}")
+                        ratio = max(ratio, err / bound)
+                    if amp:
+                        l2 = lambda x, y: sum(  # noqa: E731
+                            float(((x[k] - y[k]) ** 2).sum())
+                            for k in y) ** 0.5
+                        check(l2(gd, g32) <= TRAIN_AMP_FACTOR * l2(ga, g32),
+                              f"dist EP {b} {label} rank {r}: amp L2 "
+                              f"{l2(gd, g32)} vs one rank {l2(ga, g32)}")
+                    ratios[name] = max(ratios.get(name, 0.0), ratio)
+            worst[f"ep {b} {label}"] = ratios
+            l0 = ranks[0]["ep"]["grads"][b][False][0]
+            print(f"dist EP {b} {label}: loss {l0:.7f} vs one rank "
+                  f"{lc:.7f}; gradients within "
+                  f"bound (worst f32 {ratios['f32']:.3f}, amp "
+                  f"{ratios['amp bf16']:.3f}); launches {want} on each "
+                  f"rank; rank 0's n_real {ranks[0]['ep']['n_real']}"
+                  f"{flip_note}")
+    print(f"dist EP timing, PubMed DMPNN f32: one rank "
+          f"{ref_ep_time['event_ms']:.3f} ms events, "
+          f"{ref_ep_time['device_ms']:.3f} ms device; two ranks sharing one "
+          f"card over gloo (not a scale-out speed), rank 0 "
+          f"{gloo[0]['ep']['event_ms']:.3f} / {gloo[0]['ep']['device_ms']:.3f}"
+          f"; NCCL world of one {nccl[0]['ep']['event_ms']:.3f} / "
+          f"{nccl[0]['ep']['device_ms']:.3f}; the [{PUBMED['num_nodes']}, "
+          f"{N_HIDDEN}] f32 all-reduce: gloo, two ranks on one card "
+          f"{gloo[0]['ep']['allreduce_ms']:.3f} ms, NCCL world of one "
+          f"{nccl[0]['ep']['allreduce_ms']:.3f} ms (CUDA events)")
+
+    # the runs over the two gloo ranks, counted from zero
+    paths = {}
+    e0, e1 = (r["dp_epoch"] for r in gloo)
+    want = k3_dict(e0["steps"] * k3_launches(learn_cfg, train=True))
+    check(e0["launches"] == want and e1["launches"] == want,
+          f"dist DP train_epoch: K3 launched {e0['launches']}, "
+          f"{e1['launches']}; expected {want} on each rank")
+    check(np.isfinite(e0["loss"]) and e0["loss"] == e1["loss"]
+          and all(np.array_equal(e0["state"][k], e1["state"][k])
+                  for k in e0["state"]),
+          "dist DP train_epoch: the ranks differ")
+    paths["dist_dp_train_epoch_rank0"] = e0["launches"]
+    print(f"dist DP train_epoch: {n_tr} ER pairs, bsz {SCM_LEARN['bsz']} "
+          f"over 2 ranks, {e0['steps']} steps in {e0['seconds']:.2f} s, loss "
+          f"{e0['loss']:.6f} on both ranks, states equal; K3 {want} each")
+    t0_, t1_ = (r["train_unc"] for r in gloo)
+    steps = sum(rec["steps"] for rec in t0_["epochs"])
+    n_req = -(-BACKBONE_LINKS // (4 * GBS))
+    want = {"segment_sum_sorted:fwd": K1_FWD * (steps + n_req),
+            "segment_sum_sorted:bwd": K1_BWD * steps,
+            "gather_rows_sorted:fwd": K2_FWD * (steps + n_req),
+            "gather_rows_sorted:bwd": K2_BWD * steps}
+    check(t0_["launches"] == want and t1_["launches"] == want,
+          f"dist train_unc: launched {t0_['launches']}, {t1_['launches']}; "
+          f"expected {want} on each rank")
+    check(t0_["emb_finite"] and t0_["emb_shape"] == (PUBMED["num_nodes"],
+                                                     N_HIDDEN)
+          and t0_["emb_sum"] == t1_["emb_sum"]
+          and all(np.array_equal(t0_["state"][k], t1_["state"][k])
+                  for k in t0_["state"]), "dist train_unc: the ranks differ")
+    paths["dist_ep_train_unc_rank0"] = t0_["launches"]
+    for rec in t0_["epochs"]:
+        step_ms = [ms for ms in rec["step_ms"] if ms is not None] or [0.0]
+        print(f"dist train_unc epoch {rec['epoch']}: loss {rec['loss']:.6f}, "
+              f"{rec['steps']} steps, step "
+              f"{statistics.median(step_ms):.3f} ms median (CUDA "
+              f"events, rank 0 of two sharing one card), host sampling "
+              f"{statistics.median(rec['sample_ms']):.1f} ms median")
+    print(f"dist train_unc: {len(t0_['epochs'])} epochs, {steps} steps, "
+          f"{n_req} export requests in {t0_['seconds']:.1f} s over 2 gloo "
+          f"ranks on one card; coverage {t0_['coverage']:.4f}; launches "
+          f"{want} on each rank; states and embeddings equal")
+    launches = {"ep_step_per_rank": DMPNN_STEP_LAUNCHES,
+                "dp_step_per_rank": want_k3}
+    print(f"dist: phase 18 took {time.perf_counter() - t0:.1f} s")
+    return dict(worst=worst, kernels=kernels, launches=launches), paths
+
+
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                  bench_launches, scm, scm_nets, scm_seq, scm_attn,
-                 scm_mem) -> dict:
+                 scm_mem, scm_dist) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -2588,12 +3370,13 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                 "library_ms", "library_device_ms", "bound_ms")
         return {k + suffix: t[k] for k in keys}
 
-    def k12(name, replaces, main, others):
+    def k12(name, replaces, main, others, ep_rank_step):
         fwd = train_launches[name + ":fwd"]
         bwd = train_launches[name + ":bwd"]
         out = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": fwd + bwd,
                "launches_fwd": fwd, "launches_bwd": bwd,
+               "launches_ep_rank_step": ep_rank_step,
                "max_abs_err": max(t["err"] for t in (main, *others.values())),
                **times(main), "bound_by": "bytes"}
         for suffix, t in others.items():
@@ -2677,18 +3460,31 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                                     for net, r in scm_attn.items()}
     # phase 17: nor do the memory predict nets
     k3["launches_scm_mem_step"] = {net: r["step_launches"]
-                                   for net, r in scm_mem.items()}
+                                   for net, r in scm_mem.items()
+                                   if "step_launches" in r}
+    # phase 18: each DP rank's 64 pairs
+    dk = scm_dist["kernels"]
+    k3.update(times(dk["K3"], "_dp_rank"))
+    k3["max_abs_err"] = max(k3["max_abs_err"], dk["K3"]["err"])
+    k3["launches_dp_rank_step"] = scm_dist["launches"]["dp_step_per_rank"]
+    per_rank = scm_dist["launches"]["ep_step_per_rank"]
 
     return {"kernels": [
         k12("segment_sum_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:261",
             timed_k1[("float32", "recv", N_HIDDEN)],
             {f"_recv_w{w}": timed_k1[("float32", "recv", w)],
-             f"_send_w{w}": timed_k1[("float32", "send", w)]}),
+             f"_send_w{w}": timed_k1[("float32", "send", w)],
+             "_ep_shard": dk["K1"]},
+            {k: v for k, v in per_rank.items()
+             if k.startswith("segment_sum_sorted")}),
         k12("gather_rows_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:572",
             timed[("float32", "K2", w)],
-            {f"_w{N_HIDDEN}": timed[("float32", "K2", N_HIDDEN)]}),
+            {f"_w{N_HIDDEN}": timed[("float32", "K2", N_HIDDEN)],
+             "_ep_shard": dk["K2"]},
+            {k: v for k, v in per_rank.items()
+             if k.startswith("gather_rows_sorted")}),
         k3,
         k34("csr_segment_sum", src,
             "dualmessagepassing_tpu/ops/pallas_scatter.py:225",
@@ -2792,6 +3588,9 @@ def main() -> int:
               f"bench launched {name} {bench_launches.get(name, 0)} times")
     print(f"bench: launches {bench_launches}; total "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
+    # phase 18's kernels at its shapes, while the process is young
+    dist_k = dist_kernels(dev, *dist_inputs(args.seed + 50, graph, triplets),
+                          args.seed + 54)
 
     # phases 7-10: the other backbones, attributed inputs, supervised
     # training and the evaluation, each training run counted from zero
@@ -2844,13 +3643,22 @@ def main() -> int:
     # phase 17: the memory predict nets, each run counted from zero
     scm_mem, mem_paths = phase_scm_mem(dev, args.seed + 40, cli_data)
     paths.update(mem_paths)
-    print(json.dumps({"paths": paths}))
     print(f"phase 17 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
+    # phase 18: data-parallel SCM and edge-partitioned UNC training over
+    # torch.distributed, the runs over the ranks counted from zero
+    scm_dist, dist_paths = phase_dist(dev, args.seed + 50, graph, triplets,
+                                      dist_k)
+    paths.update(dist_paths)
+    print(json.dumps({"paths": paths}))
+    print(f"phase 18 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches, scm,
-                                  scm_nets, scm_seq, scm_attn, scm_mem)))
+                                  scm_nets, scm_seq, scm_attn, scm_mem,
+                                  scm_dist)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -8,12 +8,10 @@ in a flat dict (the reference's config dict), and `process_model_config`
 (train.py:38-65) derives model-facing sizes (reversed-edge doubling, dual
 size formulas) before ModelConfig construction.
 
-What the port runs is narrower than what parses: get_train_config refuses
---dp_devices > 1 (the port has no data-parallel path), before any data is
-built. --device picks the torch device (default cuda); --gpu_id N >= 0
-picks cuda:N, and -1 the current CUDA device, never the CPU (the
-reference's command lines pass --gpu_id 0): the CPU only with --device
-cpu.
+--device picks the torch device (default cuda); --gpu_id N >= 0 picks
+cuda:N, and -1 the current CUDA device, never the CPU (the reference's
+command lines pass --gpu_id 0): the CPU only with --device cpu.
+--dp_devices N > 1 trains on N ranks (cli/scm_train.py).
 """
 
 from __future__ import annotations
@@ -153,8 +151,7 @@ def add_train_config(parser):
     # divisible by it. 0 (default) = ~128-pair chunks picked from the
     # batch size; 1 = never chunk.
     g.add_argument("--train_microbatch_chunks", type=int, default=0)
-    # the JAX package's data parallelism over N devices; the port
-    # accepts 1 (get_train_config refuses more)
+    # data parallelism over N ranks, one a device (cli/scm_train.py)
     g.add_argument("--dp_devices", type=int, default=1)
     g.add_argument("--lr", type=float, default=1e-3)
     g.add_argument("--weight_decay", type=float, default=1e-5)
@@ -192,10 +189,6 @@ def get_train_config(argv=None) -> Dict[str, Any]:
     add_data_config(parser)
     add_train_config(parser)
     args = parser.parse_args(argv)
-    if args.dp_devices > 1:
-        parser.error(f"--dp_devices {args.dp_devices}: the port has no "
-                     "data-parallel SCM path; it comes with slice E of the "
-                     "port (ROADMAP)")
     cfg = vars(args)
     cfg["base"] = cfg.pop("enc_base")
     if cfg.get("train_log_steps", -1) > 0:

@@ -26,15 +26,20 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import logging
 import os
-from typing import Dict
+import tempfile
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.dataset import CollateView, GraphAdjDataset, collate_kind_for
 from ..data.synthetic import generate_dataset
 from ..graph import single_graph
+from ..parallel.dist import (CLI_COLLECTIVE_TIMEOUT, broadcast_object,
+                             launch, launch_plan, rank_threads)
 from ..utils.io import load_data
 
 SPLITS = ("train", "dev", "test")
@@ -183,37 +188,92 @@ def _trace(profile_dir: str, device: torch.device):
     return ctx()
 
 
+def _stamp() -> str:
+    return datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+
+
+def dp_launch_plan(config) -> Tuple[str, List[str]]:
+    """(backend, one device per rank) of --dp_devices N
+    (parallel/dist.launch_plan: NCCL with rank r on cuda:r, or gloo on
+    the CPU under --device cpu). Refused, as the JAX CLI refuses them
+    (cli/scm_train.py:211-220): more ranks than visible cards, and a
+    --train_batch_size that N does not divide."""
+    n = config["dp_devices"]
+    if config["train_batch_size"] % n:
+        # every batch would fall back to the whole batch on each rank
+        raise ValueError(
+            f"--train_batch_size {config['train_batch_size']} must be "
+            f"divisible by --dp_devices {n}")
+    return launch_plan(n, config.get("device", "cuda"))
+
+
 def main(argv=None) -> str:
-    """Train; -> the run's directory (save_model_dir/<rep>_<pred>_<ts>)."""
+    """Train; -> the run's directory (save_model_dir/<rep>_<pred>_<ts>).
+    --dp_devices N > 1 spawns N ranks (parallel/dist.launch, backend and
+    devices from dp_launch_plan) that train one model data-parallel;
+    rank 0 evaluates, logs and writes the run's files."""
+    from .config import get_train_config
+
+    config = get_train_config(argv)
+    n = config["dp_devices"]
+    if n <= 1:
+        return train(config)
+    backend, devices = dp_launch_plan(config)
+    with tempfile.TemporaryDirectory() as tmp:
+        return launch(_train_rank, n, backend=backend, devices=devices,
+                      init_file=os.path.join(tmp, "rendezvous"),
+                      args=(config, _stamp()), timeout=None,
+                      collective_timeout=CLI_COLLECTIVE_TIMEOUT,
+                      threads=rank_threads(devices))[0]
+
+
+def _train_rank(world, config, stamp):
+    return train(config, world, stamp)
+
+
+def train(config, world=None, stamp: Optional[str] = None) -> str:
+    """The training loop over the parsed config on one rank; world (a
+    parallel.dist.World) for data parallelism, on world.device. Rank 0
+    (or the one process) writes the run's directory and returns it."""
     from ..train.checkpoint import save_state
     from ..train.samplers import BucketSampler, CurriculumSampler
     from ..train.schedules import derive_schedule_config
-    from ..train.scm_driver import (MultiSteps, evaluate_epoch,
-                                    make_eval_step, make_optimizer,
-                                    make_train_step, train_epoch)
+    from ..train.scm_driver import (MultiSteps, dp_replicate_state,
+                                    evaluate_epoch, make_eval_step,
+                                    make_optimizer, make_train_step,
+                                    train_epoch)
     from ..utils.io import save_config, save_results
     from ..utils.log import generate_best_line, init_logger
-    from .config import get_train_config, train_device
+    from .config import train_device
 
-    config = get_train_config(argv)
-    device = train_device(config)
-    ts = datetime.datetime.now().strftime("%Y_%m_%d_%H_%M_%S")
+    lead = world is None or world.rank == 0
+    device = train_device(config) if world is None else world.device
     save_dir = os.path.join(
-        config["save_model_dir"],
-        "%s_%s_%s" % (config["rep_net"], config["pred_net"], ts))
-    os.makedirs(save_dir, exist_ok=True)
-    logger = init_logger(os.path.join(save_dir, "log.txt"),
-                         log_tag=config["rep_net"])
-    save_config(config, os.path.join(save_dir, "config.json"))
-    # TensorBoard scalars (reference train.py:18,688-724,1018-1025), where
-    # tensorboardX is installed
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(os.path.join(save_dir, "tb"))
-    except ImportError:
-        writer = None
+        config["save_model_dir"], "%s_%s_%s" % (
+            config["rep_net"], config["pred_net"], stamp or _stamp()))
+    writer = None
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
+        logger = init_logger(os.path.join(save_dir, "log.txt"),
+                             log_tag=config["rep_net"])
+        save_config(config, os.path.join(save_dir, "config.json"))
+        # TensorBoard scalars (reference train.py:18,688-724,1018-1025),
+        # where tensorboardX is installed
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(os.path.join(save_dir, "tb"))
+        except ImportError:
+            pass
+    else:
+        logger = logging.getLogger(f"{__name__}.rank{world.rank}")
+        logger.addHandler(logging.NullHandler())
+        logger.propagate = False
 
+    if world is not None and not lead:
+        dist.barrier()          # rank 0 builds (and caches) the data first
     datasets = build_datasets(config, logger)
+    if world is not None and lead:
+        dist.barrier()
     bounds = transform_datasets(datasets, config,
                                 config.get("remove_loops", False))
     logger.info("eigenvalue bounds: node %.2f edge %.2f" % bounds)
@@ -250,12 +310,18 @@ def main(argv=None) -> str:
                 " min_percent %g" % (
                     config["num_warmup_steps"], config["num_schedule_steps"],
                     config["num_cycles"], config["min_percent"]))
-    dropout = torch.Generator(device=device).manual_seed(config["seed"])
+    # each rank draws its own rows' dropout masks
+    dropout = torch.Generator(device=device).manual_seed(
+        config["seed"] + (world.rank if world else 0))
     train_step = make_train_step(
         model, tx, config["bp_loss"], config["match_weights"],
         eval_metric=config["eval_metric"], amp=config.get("amp", False),
         accum_chunks=config.get("train_microbatch_chunks", 0) or None,
-        generator=dropout)
+        generator=dropout, world=world)
+    if world is not None:
+        dp_replicate_state(train_step)
+        logger.info(f"data parallel: {world.size} ranks over "
+                    f"{world.backend}")
     eval_step = make_eval_step(model)       # float32, as the JAX CLI's
 
     sizes = {k: v.sizes() for k, v in datasets.items()}
@@ -285,8 +351,8 @@ def main(argv=None) -> str:
         sampler.set_epoch(epoch)
         if subset is not None:
             sampler = _SubsetSampler(sampler, subset)
-        with _trace(config.get("profile_dir") if epoch == 0 else "",
-                    device):
+        with _trace(config.get("profile_dir")
+                    if epoch == 0 and lead else "", device):
             totals = train_epoch(train_step, datasets["train"], sampler,
                                  config, epoch, log_fn=logger.info,
                                  writer=writer)
@@ -299,6 +365,16 @@ def main(argv=None) -> str:
         if writer:
             for k, v in totals.items():
                 writer.add_scalar(f"train/{k}", v, epoch)
+        if totals["total"] < best_train_loss:
+            best_train_loss = totals["total"]
+            stale_loss = 0
+        else:
+            stale_loss += 1
+        if not lead:
+            # every rank's loss is the whole batch's; rank 0 decides
+            if broadcast_object(world):
+                break
+            continue
 
         results = {}
         for split in ("dev", "test"):
@@ -333,13 +409,11 @@ def main(argv=None) -> str:
                     **{("eval-" + metric): results[split].get(metric)}))
         else:
             stale_metric += 1
-        if totals["total"] < best_train_loss:
-            best_train_loss = totals["total"]
-            stale_loss = 0
-        else:
-            stale_loss += 1
-        if (stale_loss > config["early_stop_rounds"]
-                and stale_metric > config["early_stop_rounds"]):
+        stop = (stale_loss > config["early_stop_rounds"]
+                and stale_metric > config["early_stop_rounds"])
+        if world is not None:
+            broadcast_object(world, stop)
+        if stop:
             logger.info(f"early stop at epoch {epoch}")
             break
     if writer:

@@ -17,9 +17,15 @@ The options of the JAX package's TPU kernel compositions
 (--scatter_backend, --endpoint_gather, --pad_cols, --sender_windowed,
 --recv_bcast) pick among lowerings that compute the same numbers as the
 one composition the port has: any value is accepted and changes
-nothing, with one log line each; so is --ep_partition while
---ep_devices is 0. The sharded modes (--ep_devices > 0, --ep_mode halo)
-are refused: the port has no multi-device UNC path yet.
+nothing, with one log line each; so is --ep_partition, which only the
+halo mode reads. --ep_devices N --ep_mode psum trains edge-partitioned
+over N spawned ranks (parallel/dist.launch), each of which builds the
+model from the seed and calls unc/driver.train_unc(world=...): NCCL with
+rank r on cuda:r, or gloo on the CPU with --device cpu; more ranks than
+visible CUDA devices are refused. Rank 0 logs, checkpoints and returns
+the embeddings, which this process writes. --ep_mode halo, the owner-sharded mode, is
+refused: it comes with slice E3 of the port. Supervised training stays on
+one device, as in the JAX CLI; there --ep_devices is a logged no-op.
 --device picks the torch device (default cuda); a machine without a GPU
 trains only when asked to with --device cpu. --gpu is accepted for the
 reference's command lines and not used.
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import tempfile
 import time
 from typing import List
 
@@ -71,10 +78,12 @@ def get_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on: cuda, cuda:N or cpu")
     p.add_argument("--ep_devices", type=int, default=0,
-                   help="JAX package only; the port accepts 0")
+                   help="edge-partitioned training over N ranks (0: one "
+                        "device)")
     p.add_argument("--ep_mode", type=str, default="psum",
                    choices=["psum", "halo"],
-                   help="JAX package only; the port accepts psum")
+                   help="psum: edges split, node state replicated; halo "
+                        "is not ported yet")
     p.add_argument("--scatter_backend", type=str, default="xla",
                    choices=["xla", "windowed"],
                    help="JAX package only; accepted and unused (the "
@@ -82,7 +91,7 @@ def get_args(argv=None):
                         "segment-sum)")
     p.add_argument("--ep_partition", type=str, default="degree",
                    choices=["degree", "range", "bfs"],
-                   help="JAX package only; accepted and unused")
+                   help="the halo mode's partitioner: accepted and unused")
     p.add_argument("--checkpoint_dir", type=str, default="",
                    help="save full training state (params/opt/BN/clocks/"
                         "sampling RNG) per epoch and resume from it when "
@@ -103,8 +112,9 @@ def get_args(argv=None):
 
 
 def check_supported(args) -> List[str]:
-    """Raise on what the port does not run; return one note per JAX
-    lowering option that was set and changes nothing here."""
+    """Raise on what the port does not run; return one note per option
+    that was set and changes nothing here (a JAX lowering option;
+    --ep_devices under supervised training)."""
     if args.supervised == "True" and args.attributed == "True":
         raise NotImplementedError(
             "--supervised True exports the learned node table, which "
@@ -113,25 +123,81 @@ def check_supported(args) -> List[str]:
     if args.supervised == "True" and args.checkpoint_dir:
         raise ValueError("--checkpoint_dir applies to unsupervised "
                          "training only")
-    if args.ep_devices != 0 or args.ep_mode != "psum":
+    if args.ep_mode != "psum":
         raise ValueError(
-            f"--ep_devices {args.ep_devices} --ep_mode {args.ep_mode}: the "
-            "JAX package's sharded UNC modes have no counterpart in the "
-            "port yet (it accepts --ep_devices 0 --ep_mode psum)")
-    return [f"--{name} {getattr(args, name)}: a lowering choice of the JAX "
-            "package that computes the same numbers; the port runs its "
-            "one composition" for name, default in _SAME_NUMBERS.items()
-            if getattr(args, name) != default]
+            f"--ep_mode {args.ep_mode}: the owner-sharded halo mode comes "
+            "with slice E3 of the port (it runs --ep_mode psum)")
+    if args.ep_devices < 0:
+        raise ValueError(f"--ep_devices {args.ep_devices} < 0")
+    notes = [f"--{name} {getattr(args, name)}: a lowering choice of the "
+             "JAX package that computes the same numbers; the port runs "
+             "its one composition" for name, default in _SAME_NUMBERS.items()
+             if getattr(args, name) != default]
+    if args.ep_devices and args.supervised == "True":
+        notes.append(f"--ep_devices {args.ep_devices}: supervised training "
+                     "runs on one device (as in the JAX CLI); it does not "
+                     "apply")
+    elif args.ep_devices:
+        from ..parallel.dist import launch_plan
+        launch_plan(args.ep_devices, args.device)     # refuses too many
+    return notes
+
+
+def log(msg: str) -> None:
+    print(time.strftime("%a, %d %b %Y %H:%M:%S +0000: ") + msg, flush=True)
+
+
+def build_model(args, device, n: int, r: int, **kw):
+    """The UNCTrainModel of the command line, its weights drawn from
+    --seed, on `device`."""
+    import torch
+
+    from ..unc.model import UNCTrainModel
+    return UNCTrainModel(
+        n, r, args.n_hidden, num_hidden_layers=args.n_layers,
+        dropout=args.dropout, reg_param=args.regularization,
+        generator=torch.Generator().manual_seed(args.seed),
+        backbone=args.model, **kw).to(device)
+
+
+def train_kw(args) -> dict:
+    """train_unc's and train_unc_supervised's shared keywords."""
+    return dict(
+        lr=args.lr, graph_batch_size=args.graph_batch_size,
+        graph_split_size=args.graph_split_size, sampler=args.sampler,
+        sample_depth=args.sample_depth, sample_width=args.sample_width,
+        n_epochs=args.n_epochs, grad_norm=args.grad_norm, seed=args.seed,
+        amp=args.amp.lower() in ("true", "1"), log=log)
+
+
+def unsupervised(args, triplets, n, r, attrs, seed_nodes, world=None):
+    """train_unc over the loaded graph, as this rank of `world` where
+    given -> the node embeddings (None on the ranks other than 0)."""
+    from ..unc.driver import train_unc
+
+    device = args.device if world is None else world.device
+    model = build_model(args, device, n, r, node_attri=attrs)
+    embs, _ = train_unc(
+        model, triplets, n, r, negative_rate=args.negative_sample,
+        seed_nodes=seed_nodes or None,
+        checkpoint_dir=args.checkpoint_dir or None, world=world,
+        **train_kw(args))
+    return embs if world is None or world.rank == 0 else None
+
+
+def _unsupervised_rank(world, *args):
+    return unsupervised(*args, world=world)
 
 
 def main(argv=None):
     import numpy as np
     import torch
 
+    from ..parallel.dist import (CLI_COLLECTIVE_TIMEOUT, launch,
+                                 launch_plan, rank_threads)
     from ..unc.data import (load_label, load_supervised, load_unsupervised,
                             save_embeddings)
-    from ..unc.driver import train_unc, train_unc_supervised
-    from ..unc.model import UNCTrainModel
+    from ..unc.driver import train_unc_supervised
 
     args = get_args(argv)
     notes = check_supported(args)
@@ -140,55 +206,44 @@ def main(argv=None):
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
                            "the CPU")
 
-    def log(msg):
-        print(time.strftime("%a, %d %b %Y %H:%M:%S +0000: ") + msg,
-              flush=True)
-
     for note in notes:
         log(note)
     log("start loading...")
     attributed = args.attributed == "True"
-    amp = args.amp.lower() in ("true", "1")
     seed_nodes = set()
     seed_path = (args.node.replace("node.dat", "seed_node.dat")
                  if args.node else
                  os.path.join(os.path.dirname(args.link), "seed_node.dat"))
     if os.path.exists(seed_path):
         seed_nodes = set(int(line) for line in open(seed_path))
-    sample_kw = dict(
-        lr=args.lr, graph_batch_size=args.graph_batch_size,
-        graph_split_size=args.graph_split_size, sampler=args.sampler,
-        sample_depth=args.sample_depth, sample_width=args.sample_width,
-        n_epochs=args.n_epochs, grad_norm=args.grad_norm, seed=args.seed,
-        amp=amp, log=log)
-
-    def make_model(n, r, **kw):
-        return UNCTrainModel(
-            n, r, args.n_hidden, num_hidden_layers=args.n_layers,
-            dropout=args.dropout, reg_param=args.regularization,
-            generator=torch.Generator().manual_seed(args.seed),
-            backbone=args.model, **kw).to(device)
 
     if args.supervised == "True":
         train_pool, train_labels, nlabels, multi = load_label(args.label)
         triplets, n, r, train_indices, _, _ = load_supervised(
             args.link, args.node, train_pool)
         log("finish loading...")
-        model = make_model(n, r, nlabel=nlabels, multi=multi)
+        model = build_model(args, device, n, r, nlabel=nlabels, multi=multi)
         train_unc_supervised(model, triplets, n, r, train_indices,
                              train_labels, multi=multi,
                              label_batch_size=args.label_batch_size,
-                             **sample_kw)
+                             **train_kw(args))
         embs = model.model.node_emb.detach().float().cpu().numpy()
     else:
         triplets, n, r, attrs = load_unsupervised(args.link, args.node,
                                                   attributed)
         log("finish loading...")
-        model = make_model(n, r, node_attri=attrs)
-        embs, _ = train_unc(
-            model, triplets, n, r, negative_rate=args.negative_sample,
-            seed_nodes=seed_nodes or None,
-            checkpoint_dir=args.checkpoint_dir or None, **sample_kw)
+        job = (args, triplets, n, r, attrs, seed_nodes)
+        if args.ep_devices:
+            backend, devices = launch_plan(args.ep_devices, args.device)
+            with tempfile.TemporaryDirectory() as tmp:
+                embs = launch(_unsupervised_rank, args.ep_devices,
+                              backend=backend, devices=devices,
+                              init_file=os.path.join(tmp, "rendezvous"),
+                              args=job, timeout=None,
+                              collective_timeout=CLI_COLLECTIVE_TIMEOUT,
+                              threads=rank_threads(devices))[0]
+        else:
+            embs = unsupervised(*job)
 
     log("start output...")
     header = str(vars(args))

@@ -19,6 +19,7 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.dist import all_reduce_sum
 from ..utils.act import map_activation_str_to_fn
 from ..utils.init import get_initializer
 
@@ -104,6 +105,15 @@ class MaskedBatchNorm(nn.Module):
     argument, not nn.Module.training, selects batch statistics, and in
     train mode the running buffers are updated in place (unless
     update_stats is False: a rematerialised layer's recomputation).
+
+    row_world (parallel/dist.split_rows sets it) is the counterpart of
+    the JAX layer's axis_name: the ranks that hold the other rows. The
+    count and the sum are then summed over them, and after them the
+    centred sum of squares (two passes, as the JAX layer), so the batch
+    statistics and the running ones are those of all the rows. Rows that
+    every rank holds alike give the same statistics either way, but for
+    the unbiased running variance's count, which the JAX layer also
+    takes over the ranks.
     """
 
     def __init__(self, features: int, momentum: float = 0.1,
@@ -111,6 +121,7 @@ class MaskedBatchNorm(nn.Module):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.row_world = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -124,9 +135,18 @@ class MaskedBatchNorm(nn.Module):
         if train:
             xf = x.float()
             m = mask.float()[:, None]
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (xf * m).sum(0) / cnt
-            var = (((xf - mean) ** 2) * m).sum(0) / cnt
+            world = self.row_world
+            if world is None:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (xf * m).sum(0) / cnt
+                var = (((xf - mean) ** 2) * m).sum(0) / cnt
+            else:
+                sums = all_reduce_sum(
+                    torch.cat([(xf * m).sum(0), m.sum()[None]]), world)
+                cnt = torch.clamp(sums[-1], min=1.0)
+                mean = sums[:-1] / cnt
+                var = all_reduce_sum((((xf - mean) ** 2) * m).sum(0),
+                                     world) / cnt
         if train and update_stats:
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)

@@ -15,7 +15,9 @@ exists; the parameters are those of the concatenation. The true lengths
 pl, gl are summed in float32 and then cast to the compute dtype (bf16
 cannot count above 256). Pooling: sum (masked), mean (sum over the
 batch's largest true length, the reference's padded length) or max
-(padding at 0). The attention and memory variants (models/pred_attn.py)
+(padding at 0). Under data parallelism (parallel/dist.split_rows) the
+largest true length is the whole batch's, as under the JAX package's
+sharding. The attention and memory variants (models/pred_attn.py)
 transform the graph's rows first (pre_transform); DIAMNet, also there,
 is a predict net of its own with the same call.
 """
@@ -28,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.dist import all_reduce_max
 from ..utils.act import map_activation_str_to_fn
 from .layers import Dense, dropout
 
@@ -44,6 +47,8 @@ class PredictNet(nn.Module):
         self.act_fn = map_activation_str_to_fn(act)
         self.dropout = dropout
         self.return_weights = return_weights
+        # the ranks holding the batch's other rows (parallel/dist.py)
+        self.row_world = None
 
         def dense(din, dout, init="normal"):
             return Dense(din, dout, init=init, activation=act,
@@ -82,6 +87,9 @@ class PredictNet(nn.Module):
         gl = g_mask.float().sum(1, keepdim=True).to(dt)
         pl_inv, gl_inv = 1.0 / pl, 1.0 / gl
         p_max_len, g_max_len = pl.max(), gl.max()
+        if self.row_world is not None:
+            p_max_len, g_max_len = all_reduce_max(
+                torch.stack([p_max_len, g_max_len]), self.row_world)
 
         if p_rep.dim() == 2:
             p = p_rep

@@ -39,6 +39,7 @@ from torch import nn
 from torch.func import functional_call
 
 from ..constants import _INF
+from ..parallel.dist import all_reduce_max
 from ..utils.act import map_activation_str_to_fn, sparsemax
 from ..utils.init import get_initializer
 from .edgeseq import RNNCell, run_cells
@@ -517,6 +518,7 @@ class DIAMNet(_RoundedUnderAmp):
         self.dropout, self.return_weights = dropout, return_weights
         self.infer_steps, self.mem_len, self.mem_init = (infer_steps, mem_len,
                                                          mem_init)
+        self.row_world = None      # as PredictNet's
         attn_kw = dict(hidden_dim=h, num_heads=num_heads,
                        scale=1.0 / math.sqrt(h / num_heads),
                        score_func="sparsemax", add_gate=True,
@@ -578,7 +580,8 @@ class DIAMNet(_RoundedUnderAmp):
             else:
                 p = (p * p_mask[..., None]).sum(1)
                 if base != "sum":
-                    p = p / pl.max().clamp(min=1.0)
+                    p = p / all_reduce_max(
+                        pl.max(), self.row_world).clamp(min=1.0)
             p = p[:, None, :]                              # [B, 1, h]
             g = self.m_attn(self.g_fc(g_rep), m, m, g_mask, m_mask, train,
                             generator)

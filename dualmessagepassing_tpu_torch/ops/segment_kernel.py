@@ -213,6 +213,11 @@ def segment_sum_sorted(msg: torch.Tensor, row_ptr: torch.Tensor, *,
             raise ValueError("segment_sum_sorted: msg and rows on different "
                              "devices")
         n_edges = rows.numel()
+        if not n_edges:
+            # an empty index has no storage to point at; the kernel reads
+            # none of it (row_ptr names no edge), but takes a null one for
+            # "no index"
+            rows = torch.zeros(1, dtype=torch.int64, device=msg.device)
     v = row_ptr.numel() - 1
     out = torch.empty((v, h), dtype=msg.dtype, device=msg.device)
     if v == 0 or h == 0:

@@ -1,0 +1,304 @@
+"""Process groups: the port's counterpart of the JAX package's meshes and
+psum (dualmessagepassing_tpu/parallel/dp.py:make_dp_mesh,
+parallel/ep_unc.py's shard_map over 'ep').
+
+JAX runs one process over N devices. The port runs N processes, one rank
+per device, over a torch.distributed process group:
+
+  * launch(fn, size, backend=..., devices=[...], init_file=...) spawns
+    the ranks (start method spawn), rendezvous on the file the caller
+    names (file://, so concurrent launches never race for a TCP port),
+    and calls fn(world, *args) in each; it returns every rank's result.
+    The backend and each rank's device are the caller's: NCCL with rank r
+    on cuda:r, or gloo on the CPU or on CUDA tensors (two ranks may then
+    share a card). Nothing picks either by itself. A rank that fails, or
+    a run that outlives its timeout, kills every rank and raises.
+  * World is one rank's view: rank, size, device, backend.
+  * all_reduce_sum is the sum over the ranks whose backward is again the
+    sum over the ranks (the adjoint of a psum). all_reduce_max carries no
+    gradient. Both are the identity where no world is given.
+  * split_rows(module, world) is the counterpart of a flax module's
+    axis_name: inside it every submodule with a row_world attribute
+    (MaskedBatchNorm, the predict nets, the UNC layers and losses) holds
+    `world`, and completes its batch statistics, lengths and
+    aggregations over the ranks that hold the other rows.
+  * all_reduce_grads sums each parameter's gradient over the ranks.
+
+The convention that makes every gradient exact: each rank computes the
+whole, replicated loss L (every cross-rank partial sum goes through
+all_reduce_sum), seeds its backward with 1/size, and the gradients are
+summed over the ranks before the update. That differentiates
+(1/size) * sum over the ranks of L = L over a graph in which every
+cross-rank sum has its true adjoint. Every rank then applies the same
+update to the same parameters, so they stay equal bit for bit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import datetime
+import os
+import queue
+import time
+import traceback
+from typing import (Any, Callable, Iterable, List, Optional, Sequence,
+                    Tuple)
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class World:
+    """One rank of a process group: its rank, the group's size, the
+    rank's device and the group's backend. The group is the default one
+    (init_world's); the collectives here take the World to name the
+    ranks they run over."""
+
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+
+
+def _reduce(x: torch.Tensor, world: World, op) -> torch.Tensor:
+    """A copy of x, at least float32, reduced over the ranks, cast back to
+    x's dtype (a bf16 partial sum is summed in float32 and rounded
+    once)."""
+    y = x.detach().to(torch.promote_types(x.dtype, torch.float32),
+                      copy=True).contiguous()
+    dist.all_reduce(y, op=op)
+    return y.to(x.dtype)
+
+
+class _AllReduceSum(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.world = world
+        return _reduce(x, world, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.world, dist.ReduceOp.SUM), None
+
+
+def all_reduce_sum(x: torch.Tensor, world: Optional[World]) -> torch.Tensor:
+    """The sum of x over the ranks of `world` (x itself without one); its
+    backward sums the cotangents over the ranks."""
+    if world is None:
+        return x
+    return _AllReduceSum.apply(x, world)
+
+
+def all_reduce_max(x: torch.Tensor, world: Optional[World]) -> torch.Tensor:
+    """The elementwise max of x over the ranks (x without a world); no
+    gradient flows through it."""
+    if world is None:
+        return x
+    return _reduce(x, world, dist.ReduceOp.MAX)
+
+
+@contextlib.contextmanager
+def split_rows(module: nn.Module, world: Optional[World]):
+    """Within it, every submodule of `module` that has a row_world
+    attribute holds `world`; the attributes are restored on exit. A
+    train step wraps its forward and backward in it, so that a
+    rematerialised forward sees it too. Without a world (all rows on
+    this rank) it does nothing."""
+    if world is None:
+        yield
+        return
+    mods = [m for m in module.modules() if hasattr(m, "row_world")]
+    old = [m.row_world for m in mods]
+    for m in mods:
+        m.row_world = world
+    try:
+        yield
+    finally:
+        for m, w in zip(mods, old):
+            m.row_world = w
+
+
+def all_reduce_grads(params: Iterable[torch.Tensor], world: World) -> None:
+    """Sum every parameter's gradient over the ranks, in one all-reduce
+    of one float32 buffer. A parameter without a gradient gets zeros
+    first (the optimizers update every parameter)."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def broadcast_object(world: World, obj: Any = None, src: int = 0) -> Any:
+    """Rank `src`'s `obj` (anything picklable) on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src)
+    return box[0]
+
+
+def same_on_all_ranks(value: int, world: World) -> bool:
+    """Whether every rank passed the same integer (a checksum)."""
+    t = torch.tensor([value, -value], dtype=torch.int64, device=world.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return int(t[0]) == value and int(t[1]) == -value
+
+
+# -----------------------------------------------------------------------------
+# the launcher
+# -----------------------------------------------------------------------------
+
+def launch_plan(n: int, device) -> Tuple[str, List[str]]:
+    """The command lines' (backend, one device per rank) for n ranks of a
+    run on `device`: gloo with every rank on the CPU for a CPU device,
+    else NCCL with rank r on cuda:r; more ranks than visible CUDA devices
+    are refused (the JAX CLI's rule, cli/scm_train.py:211-214)."""
+    if torch.device(device).type == "cpu":
+        return "gloo", ["cpu"] * n
+    n_avail = torch.cuda.device_count()
+    if n > n_avail:
+        raise ValueError(f"{n} ranks but only {n_avail} CUDA devices are "
+                         "visible")
+    return "nccl", [f"cuda:{r}" for r in range(n)]
+
+
+def init_world(rank: int, size: int, backend: str, device,
+               init_file: str, timeout: float = 300.0) -> World:
+    """Join the default process group as `rank` of `size` over `backend`,
+    rendezvous on the file `init_file`; collectives that wait longer than
+    `timeout` seconds raise."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.abspath(init_file),
+        rank=rank, world_size=size,
+        timeout=datetime.timedelta(seconds=timeout), **kw)
+    return World(rank, size, device, backend)
+
+
+def rank_threads(devices: Sequence[str]) -> Optional[int]:
+    """Each rank's torch threads where the ranks share the host's CPU
+    cores (a CPU run): this process's count over the number of CPU
+    ranks, at least 1; None (torch's default) where no rank is on the
+    CPU."""
+    n_cpu = sum(torch.device(d).type == "cpu" for d in devices)
+    return max(1, torch.get_num_threads() // n_cpu) if n_cpu else None
+
+
+def _rank_main(rank: int, fn: Callable, size: int, backend: str,
+               devices: Sequence[str], init_file: str, args: tuple,
+               threads: Optional[int], timeout: float, results) -> None:
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        world = init_world(rank, size, backend, devices[rank], init_file,
+                           timeout)
+        try:
+            out = fn(world, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+
+
+def _failures(results, size: int, backend: str, failed: dict,
+              wait: float = 2.0) -> str:
+    """The tracebacks of the ranks that failed: the first one's and those
+    that arrive within `wait` seconds (a rank that fails takes the
+    others' collectives down with it)."""
+    end = time.monotonic() + wait
+    while time.monotonic() < end:
+        try:
+            rank, ok, value = results.get(timeout=0.1)
+        except queue.Empty:
+            continue
+        if not ok:
+            failed[rank] = value
+    return "\n".join(f"rank {r} of {size} over {backend} failed:\n{tb}"
+                     for r, tb in sorted(failed.items()))
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(10)
+
+
+# the collective timeout of the command lines' ranks: there rank 0
+# evaluates, exports or writes a checkpoint while the others wait in a
+# collective, for as long as a real dataset takes
+CLI_COLLECTIVE_TIMEOUT = 7 * 24 * 3600.0
+
+
+def launch(fn: Callable, size: int, *, backend: str, devices: Sequence[str],
+           init_file: str, args: tuple = (),
+           timeout: Optional[float] = 600.0,
+           collective_timeout: float = 1800.0,
+           threads: Optional[int] = None) -> List[Any]:
+    """Run fn(world, *args) in `size` spawned processes, rank r on
+    devices[r], over `backend` ("gloo" or "nccl"), with the rendezvous
+    file `init_file` (it must not exist; it is removed afterwards). fn
+    must be importable by name, and its arguments and result picklable;
+    a result holds numpy arrays, not tensors (a tensor would come back
+    through shared memory that the rank's exit releases).
+    threads, if given, is each rank's torch.set_num_threads. -> each
+    rank's result, by rank. When a rank raises, or the ranks have not all
+    returned after `timeout` seconds (None: no limit), every rank is
+    killed and a RuntimeError (TimeoutError) says which. A collective
+    that waits `collective_timeout` seconds for another rank raises in
+    its rank."""
+    if len(devices) != size:
+        raise ValueError(f"{size} ranks need {size} devices, got {devices}")
+    if os.path.exists(init_file):
+        raise ValueError(f"rendezvous file {init_file} exists already")
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(
+        target=_rank_main,
+        args=(r, fn, size, backend, [str(d) for d in devices], init_file,
+              args, threads, collective_timeout, results), daemon=True)
+        for r in range(size)]
+    for p in procs:
+        p.start()
+    out = {}
+    deadline = float("inf") if timeout is None else time.monotonic() + timeout
+    try:
+        while len(out) < size:
+            try:
+                rank, ok, value = results.get(timeout=0.2)
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in out and not p.is_alive()]
+                if dead:
+                    raise RuntimeError(
+                        f"rank(s) {dead} of {size} exited without a result "
+                        f"(exit codes {[procs[r].exitcode for r in dead]})")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"{size} ranks over {backend}: no result from rank(s) "
+                        f"{sorted(set(range(size)) - set(out))} after "
+                        f"{timeout:.0f} s")
+                continue
+            if not ok:
+                raise RuntimeError(_failures(results, size, backend,
+                                             {rank: value}))
+            out[rank] = value
+        for p in procs:
+            p.join(min(max(deadline - time.monotonic(), 1.0), 60.0))
+    finally:
+        _stop(procs)
+        if os.path.exists(init_file):
+            os.remove(init_file)
+    return [out[r] for r in range(size)]

@@ -28,6 +28,9 @@ import torch
 
 from ..constants import MIN_PERCENT
 from ..graph import GraphBatch
+from ..parallel.dist import (World, all_reduce_grads, broadcast_object,
+                             split_rows)
+from ..parallel.dp import replicate, shard_rows
 from ..unc.evaluate import roc_auc_score
 from ..utils.amp import cast_floats
 from .losses import scm_loss
@@ -217,8 +220,8 @@ def make_train_step(model, tx: SCMOptimizer, bp_loss: str = "MSE",
                     return_weights: str = "none",
                     eval_metric: Optional[str] = None, amp: bool = False,
                     accum_chunks: Optional[int] = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Callable:
+                    generator: Optional[torch.Generator] = None,
+                    world: Optional[World] = None) -> Callable:
     """-> step(pattern, graph, counts, node_weights, edge_weights,
     neg_slope, match_loss_w, match_reg_w, rep_reg_w, lr_mult) -> losses
     (a dict of 0-dim float32 tensors, before the update). The batch is on
@@ -234,47 +237,89 @@ def make_train_step(model, tx: SCMOptimizer, bp_loss: str = "MSE",
     the JAX package (scm_driver.py:99-107). The weight targets go through
     refine_weights first, for the whole batch (scm_driver.py:166-167).
 
-    The step carries .model and .optimizer."""
+    world (data parallelism, the JAX step's mesh; scm_driver.py:218-250):
+    the step runs on every rank of `world`, each with its own rows of
+    the batch (train_epoch collates them: shard_rows), and the model
+    completes its BatchNorm statistics, the predict nets' largest
+    lengths and the losses over the ranks (parallel/dist.py), so each
+    rank computes the whole batch's losses. Each rank's backward is
+    seeded with 1 / world.size and the gradients are summed over the
+    ranks before the update, which is then the same on every rank.
+    accum_chunks None means 1 under DP (the JAX step's auto rule: the
+    rank's share is already a chunk); an explicit k splits each rank's
+    rows into its shares of the JAX step's k microbatches. A batch that
+    does not split (sharded=False: the ragged last batch of a
+    curriculum epoch) is computed whole on every rank, as the JAX
+    package replicates it: no cross-rank statistics, and the summed
+    gradients, each seeded 1 / world.size, are the batch's gradient.
+
+    The step carries .model, .optimizer, .world and .chunks (the
+    microbatch count under DP)."""
     use_node_w = "node" in return_weights
     use_edge_w = "edge" in return_weights
+    ranks = 1 if world is None else world.size
 
     def step(pattern, graph, counts, node_weights, edge_weights,
              neg_slope, match_loss_w, match_reg_w, rep_reg_w,
-             lr_mult=1.0) -> Dict[str, torch.Tensor]:
+             lr_mult=1.0, sharded: bool = True) -> Dict[str, torch.Tensor]:
         bsz = counts.shape[0]
-        k = auto_chunks(bsz) if accum_chunks is None else accum_chunks
+        if accum_chunks is not None:
+            k = accum_chunks
+        else:
+            k = auto_chunks(bsz) if world is None else 1
         k = max(k, 1)
         if bsz % k:
             raise ValueError(
                 f"batch size {bsz} not divisible by accum_chunks {k}")
         m = bsz // k
+        split = world if sharded else None
         if use_node_w:
             node_weights = refine_weights(model, "node", node_weights)
         if use_edge_w:
             edge_weights = refine_weights(model, "edge", edge_weights)
         tx.zero_grad()
         sums: Dict[str, torch.Tensor] = {}
-        for c in range(k):
-            rows = slice(c * m, (c + 1) * m)
-            out = apply_model(model, pattern.slice(rows), graph.slice(rows),
-                              amp=amp, train=True, generator=generator)
-            losses = scm_loss(
-                out, counts[rows],
-                node_weights[rows] if use_node_w else None,
-                edge_weights[rows] if use_edge_w else None,
-                bp_loss=bp_loss, neg_slope=neg_slope,
-                match_loss_w=match_loss_w, match_reg_w=match_reg_w,
-                rep_reg_w=rep_reg_w, eval_metric=eval_metric)
-            (losses["total"] / k if k > 1 else losses["total"]).backward()
-            for name, v in losses.items():
-                v = v.detach()
-                sums[name] = v if name not in sums else sums[name] + v
+        with split_rows(model, split):
+            for c in range(k):
+                rows = slice(c * m, (c + 1) * m)
+                out = apply_model(model, pattern.slice(rows),
+                                  graph.slice(rows), amp=amp, train=True,
+                                  generator=generator)
+                losses = scm_loss(
+                    out, counts[rows],
+                    node_weights[rows] if use_node_w else None,
+                    edge_weights[rows] if use_edge_w else None,
+                    bp_loss=bp_loss, neg_slope=neg_slope,
+                    match_loss_w=match_loss_w, match_reg_w=match_reg_w,
+                    rep_reg_w=rep_reg_w, eval_metric=eval_metric,
+                    world=split)
+                seed = k * ranks
+                (losses["total"] / seed if seed > 1
+                 else losses["total"]).backward()
+                for name, v in losses.items():
+                    v = v.detach()
+                    sums[name] = v if name not in sums else sums[name] + v
+        if world is not None:
+            all_reduce_grads(tx.params, world)
         tx.step(lr_mult)
         return {name: v / k for name, v in sums.items()} if k > 1 else sums
 
     step.model = model
     step.optimizer = tx
+    step.world = world
+    step.chunks = max(accum_chunks or 1, 1)
     return step
+
+
+def dp_replicate_state(train_step: Callable) -> None:
+    """Rank 0's model state (parameters and BatchNorm statistics) and
+    optimizer state on every rank of train_step.world, in place: the
+    counterpart of the JAX package's dp_replicate_state
+    (scm_driver.py:244-250), called once before training."""
+    world = train_step.world
+    model, tx = train_step.model, train_step.optimizer
+    replicate(world, model.state_dict().values())
+    tx.load_state_dict(broadcast_object(world, tx.state_dict()))
 
 
 def make_eval_step(model, amp: bool = False) -> Callable:
@@ -322,8 +367,14 @@ def train_epoch(train_step: Callable, dataset, sampler,
     edges_per_sec (real pattern + graph edges over the epoch's wall
     time), pairs_per_sec and the epoch's seconds (the device
     synchronised at its end). `writer` (anything with add_scalar) gets
-    the reference's per-step scalars after the epoch."""
+    the reference's per-step scalars after the epoch.
+
+    Under data parallelism (train_step.world) every rank draws the same
+    batches from the same sampler and collates only its own rows
+    (shard_rows; all of them for a batch that does not split), and the
+    losses are the whole batch's on every rank."""
     device = model_device(train_step.model)
+    world = getattr(train_step, "world", None)
     epoch_steps = len(sampler)
     full_epoch_steps = getattr(sampler, "full_len", epoch_steps)
     total_steps = config.get("train_epochs", 100) * max(full_epoch_steps, 1)
@@ -347,8 +398,11 @@ def train_epoch(train_step: Callable, dataset, sampler,
     host_sizes = dataset.sizes()
     t_epoch = time.perf_counter()
     for batch_id, idx in enumerate(sampler):
+        rows = None if world is None else shard_rows(
+            len(idx), world, train_step.chunks)
+        mine = idx if rows is None else [idx[i] for i in rows]
         _, pattern, graph, counts, (nw, ew) = dataset.batchify(
-            idx, return_weights)
+            mine, return_weights)
         step = epoch * full_epoch_steps + batch_id     # scalar clock
         lr_mult = lr_s(lr_step0 + batch_id)            # LR clock
         # placeholder targets; an EdgeSeqBatch has one mask for both
@@ -363,8 +417,9 @@ def train_epoch(train_step: Callable, dataset, sampler,
             pattern.to(device, True), graph.to(device, True),
             _to(counts, device), _to(nw, device), _to(ew, device),
             scal["neg_slp"], scal["match_loss_w"], scal["match_reg_w"],
-            scal["rep_reg_w"], lr_mult)
-        bsz = counts.shape[0]
+            scal["rep_reg_w"], lr_mult, **(
+                {} if world is None else {"sharded": rows is not None}))
+        bsz = len(idx)
         total_edges += sum(host_sizes[i]["g_len"] + host_sizes[i]["p_len"]
                            for i in idx)
         n += bsz

@@ -19,10 +19,14 @@ head instead: each batch joins the incident edges of label_batch_size
 sampled labeled nodes to its triplets before sampling, and the loss is
 node_fc's classification loss on the labeled rows.
 
-The JAX driver's sharding and TPU-gate arguments (ep_*, halo_*,
-scatter_backend, pad_cols, recv_bcast, sender_windowed, endpoint_gather)
-have no counterpart: every choice among them computes the numbers of
-the one composition this package has.
+train_unc(world=...) trains edge-partitioned as one of the ranks of a
+process group (parallel/ep_unc.py, the JAX package's ep_mode "psum";
+cli/unc_train.py --ep_devices N spawns the ranks): every rank samples
+the same batches from the same seed and keeps its slice of the edges.
+The JAX package's halo mode (ep_mode "halo", halo_*) is not ported yet;
+its TPU-gate arguments (scatter_backend, pad_cols, recv_bcast,
+sender_windowed, endpoint_gather) have no counterpart: every choice among
+them computes the numbers of the one composition this package has.
 """
 
 from __future__ import annotations
@@ -37,6 +41,10 @@ import numpy as np
 import torch
 
 from ..ops.segment_kernel import attach_csr_plan
+from ..parallel.dist import World, same_on_all_ranks
+from ..parallel.dp import replicate
+from ..parallel.ep_unc import (attach_ep_csr_plans, make_ep_apply,
+                               make_ep_train_step, pad_e_max, shard_sub)
 from ..train.checkpoint import (restore_unc_checkpoint, rng_from_state,
                                 save_unc_checkpoint)
 from .data import (
@@ -250,10 +258,14 @@ def export_start_table(model: UNCTrainModel) -> np.ndarray:
     return bb.node_emb.detach().float().cpu().numpy().copy()
 
 
-def make_unc_embed_step(model: UNCTrainModel,
-                        amp: bool = False) -> Callable:
+def make_unc_embed_step(model: UNCTrainModel, amp: bool = False,
+                        world: Optional[World] = None) -> Callable:
     """sub (tensors on the model's device) -> node rows h [V, H] float32,
-    eval-mode forward under torch.inference_mode()."""
+    eval-mode forward under torch.inference_mode(); with `world` the sub
+    is this rank's shard (parallel/ep_unc.make_ep_apply)."""
+    if world is not None:
+        fwd = make_ep_apply(model, world, amp=amp)
+        return lambda sub: fwd(sub)[0]
 
     def embed(sub):
         with torch.inference_mode():
@@ -285,7 +297,8 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
                       v_max: Optional[int] = None,
                       e_max: Optional[int] = None,
                       on_request: Optional[Callable[[dict], None]] = None,
-                      log: Callable[[str], None] = print):
+                      log: Callable[[str], None] = print,
+                      world: Optional[World] = None):
     """Coverage-weighted moving-average export (driver.py:641-689) ->
     (node_emb [N, H] float32 numpy, coverage fraction).
 
@@ -295,24 +308,28 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
     min(v_max * sample_width, graph.num_edges). `on_request`, if given,
     receives one dict per request: request index, host sampling ms,
     forward ms (CUDA events; None off CUDA), real edges and rows, and
-    the coverage so far."""
+    the coverage so far. With `world` (edge-partitioned, driver.py:
+    655-660) every rank samples the same requests and forwards its slice
+    of their edges; each rank returns the same table."""
     device = model_device(model)
     v_max = graph.num_nodes if v_max is None else v_max
     e_max = min(v_max * sample_width, graph.num_edges) if e_max is None \
         else e_max
     bsz = graph_batch_size * 4
     s_max = bsz * (1 + negative_rate)
-    embed = make_unc_embed_step(model, amp=amp)
+    embed = make_unc_embed_step(model, amp=amp, world=world)
     node_emb = export_start_table(model)
     seen = np.zeros(graph.num_nodes, bool)
     for i in range(math.ceil(len(triplets) / bsz)):
         edges = triplets[i * bsz: (i + 1) * bsz]
         t0 = time.perf_counter()
-        subp = attach_csr_plan(sample_batch(
+        subp = sample_batch(
             graph, edges, sampler, sample_depth, sample_width,
-            graph_split_size, negative_rate, v_max, e_max, s_max, rng))
+            graph_split_size, negative_rate, v_max, e_max, s_max, rng)
+        mine = (attach_csr_plan(subp) if world is None
+                else attach_ep_csr_plans(shard_sub(subp, world)))
         sample_ms = (time.perf_counter() - t0) * 1e3
-        sub = to_device(subp, device)
+        sub = to_device(mine, device)
         h, forward_ms = _cuda_ms(device, lambda: embed(sub))
         h = h.cpu().numpy()
         nm = subp["node_mask"]
@@ -325,7 +342,7 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
         seen[nid] = True
         if on_request is not None:
             on_request({"request": i, "sample_ms": sample_ms,
-                        "forward_ms": forward_ms, "n_real": subp["n_real"],
+                        "forward_ms": forward_ms, "n_real": mine["n_real"],
                         "n_nodes": int(nm.sum()),
                         "coverage": float(seen.sum()) / graph.num_nodes})
     coverage = float(seen.sum()) / graph.num_nodes
@@ -344,9 +361,10 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
               checkpoint_dir: Optional[str] = None, amp: bool = False,
               on_epoch: Optional[Callable[[dict], None]] = None,
               on_request: Optional[Callable[[dict], None]] = None,
-              log: Callable[[str], None] = print):
+              log: Callable[[str], None] = print,
+              world: Optional[World] = None):
     """Train `model` in place, then export -> (node_embeddings [N, h]
-    float32 numpy, coverage fraction) (driver.py:273-689, one device).
+    float32 numpy, coverage fraction) (driver.py:273-689).
 
     The model's parameters and device are the caller's (backbone,
     node_attri, h_dim, n_layers, dropout and reg_param live on the
@@ -374,9 +392,24 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
     dict: epoch, loss, steps, the step losses, host sampling ms per batch
     (in the sampler threads), wait ms per step (the main loop blocked on
     the sampler), step ms (CUDA events; None off CUDA) and the epoch's
-    wall-clock ms. on_request is export_embeddings'."""
+    wall-clock ms. on_request is export_embeddings'.
+
+    world (a parallel.dist.World) runs this call as one rank of a
+    process group (each rank calls train_unc, its model on world.device):
+    edge-partitioned training (parallel/ep_unc.py; driver.py:372-392,
+    473-510, 655-660). Rank 0's state is broadcast first; e_max is
+    rounded up to a multiple of the ranks (pad_e_max); every rank
+    samples the same batches (the first batch's receivers are compared
+    over the ranks) and keeps its slice of their edges with its own
+    K1/K2 plans. Rank 0 logs, calls on_epoch and on_request and writes
+    the checkpoint; every rank returns the embeddings."""
+    lead = world is None or world.rank == 0
+    if not lead:
+        on_epoch = on_request = None
+        log = _quiet
     device = model_device(model)
     rng = np.random.default_rng(seed)
+    # the same seed on every rank: dropout acts on replicated node rows
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
     graph = WholeGraph(num_nodes, num_rels, triplets)
     if seed_nodes:
@@ -394,22 +427,45 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
         v_max = num_nodes
     if e_max is None:
         e_max = min(v_max * sample_width, graph.num_edges)
+    if world is not None:
+        e_max = pad_e_max(e_max, world.size)
     s_max = graph_batch_size * (1 + negative_rate)
 
     optimizer = make_unc_optimizer(model, lr, n_epochs * n_batches,
                                    grad_norm)
-    step = make_unc_train_step(model, optimizer, amp=amp,
-                               generator=dropout_gen)
+    if world is None:
+        step = make_unc_train_step(model, optimizer, amp=amp,
+                                   generator=dropout_gen)
+    else:
+        replicate(world, model.state_dict().values())
+        step = make_ep_train_step(model, optimizer, world, amp=amp,
+                                  generator=dropout_gen)
+
+    def sample(edges, brng):
+        # the JAX package's train_unc samples sharded batches without
+        # the global sender sort (driver.py:528); the RNG stream is the
+        # same
+        return sample_batch(
+            graph, edges, sampler, sample_depth, sample_width,
+            graph_split_size, negative_rate, v_max, e_max, s_max, brng,
+            send_keys=world is None)
 
     def sample_and_prepare(edges, brng):
         t0 = time.perf_counter()
-        padded = attach_csr_plan(sample_batch(
-            graph, edges, sampler, sample_depth, sample_width,
-            graph_split_size, negative_rate, v_max, e_max, s_max, brng,
-            send_keys=True), sender_plan=True)
+        padded = sample(edges, brng)
+        if world is None:
+            padded = attach_csr_plan(padded, sender_plan=True)
+        else:
+            padded = attach_ep_csr_plans(shard_sub(padded, world),
+                                         sender_plan=True)
         return padded, (time.perf_counter() - t0) * 1e3
 
-    sample_and_prepare(train_edges[:graph_batch_size], rng)   # RNG parity
+    first = sample(train_edges[:graph_batch_size], rng)      # RNG parity
+    if world is not None and not same_on_all_ranks(
+            int(np.dot(first["receivers"], np.arange(
+                len(first["receivers"])) % 65521)), world):
+        raise RuntimeError("the ranks sampled different batches from the "
+                           "same seed")
 
     prev_loss = float("inf")
     start_epoch = 0
@@ -452,7 +508,7 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
                 step_ms.append(ms)
             loss = sum(losses) / max(len(losses), 1)
             log(f"Epoch {epoch:05d} | Loss {loss:.4f}")
-            if ckpt_path:
+            if ckpt_path and lead:
                 save_unc_checkpoint(
                     ckpt_path, model, optimizer,
                     {"epoch": epoch,
@@ -471,7 +527,12 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
         model, graph, triplets, graph_batch_size, rng=rng, sampler=sampler,
         sample_depth=sample_depth, sample_width=sample_width,
         graph_split_size=graph_split_size, negative_rate=negative_rate,
-        amp=False, v_max=v_max, e_max=e_max, on_request=on_request, log=log)
+        amp=False, v_max=v_max, e_max=e_max, on_request=on_request, log=log,
+        world=world)
+
+
+def _quiet(msg: str) -> None:
+    """The log of a rank other than 0."""
 
 
 def train_unc_supervised(model: UNCTrainModel, triplets: np.ndarray,

@@ -72,6 +72,7 @@ from ..models.layers import dropout as _dropout
 from ..ops.encoding import get_enc_len, multihot_table
 from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
                                   gather_rows_perm)
+from ..parallel.dist import all_reduce_sum
 from ..utils.amp import cast_floats
 from ..utils.init import embedding_uniform, scaled, xavier_uniform
 
@@ -99,13 +100,14 @@ def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
     return F.one_hot(idx, n).to(table.dtype) @ table
 
 
-def _out_degrees(sub: Sub) -> torch.Tensor:
+def _out_degrees(sub: Sub, world=None) -> torch.Tensor:
     """Global out-degrees over real edges (pad_subgraph ships them as
-    sub["out_deg"]; this is the in-model fallback)."""
+    sub["out_deg"]; this is the in-model fallback), summed over the
+    ranks that hold the other edges (unc/model.py:513-514, 694-695)."""
     senders = sub["senders"]
     v = sub["node_mask"].shape[0]
-    return torch.zeros(v, device=senders.device).index_add_(
-        0, senders, sub["edge_mask"].float())
+    return all_reduce_sum(torch.zeros(v, device=senders.device).index_add_(
+        0, senders, sub["edge_mask"].float()), world)
 
 
 class UpdateMLP2(nn.Module):
@@ -157,6 +159,7 @@ class DualGraphConv(nn.Module):
             self.ebias = _zeros(hidden_dim)
         self.nmlp = UpdateMLP2(hidden_dim, hidden_dim, batch_norm, generator)
         self.emlp = UpdateMLP2(hidden_dim, hidden_dim, batch_norm, generator)
+        self.row_world = None        # the ranks holding the other edges
 
     def forward(self, sub: Sub, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, edge_norm=None,
@@ -169,7 +172,8 @@ class DualGraphConv(nn.Module):
         receivers = sub["receivers"]
         e_mask = sub["edge_mask"]
         rev = sub["rev_flag"][:, None]
-        out_deg = sub["out_deg"] if "out_deg" in sub else _out_degrees(sub)
+        out_deg = (sub["out_deg"] if "out_deg" in sub
+                   else _out_degrees(sub, self.row_world))
 
         # ONE [V, 2H+1] endpoint table: src/dst products plus the
         # log-degree column, cast to the compute dtype BEFORE the concat
@@ -193,6 +197,7 @@ class DualGraphConv(nn.Module):
         node_msg = torch.where(e_mask[:, None], node_msg, 0.0)
         agg = SegmentSumSorted.apply(                            # K1, bwd K2
             node_msg, sub["sk_rowptr"], receivers, sub["n_real"])
+        agg = all_reduce_sum(agg, self.row_world)       # unc/model.py:637
 
         n_out = node_feat @ self.nloop_weight.to(dt) + agg
         if self.use_bias:
@@ -284,13 +289,14 @@ class UNCDMPNN(_Backbone):
                 activation="tanh" if i < num_hidden_layers - 1 else None,
                 dropout=dropout, generator=generator)
             for i in range(num_hidden_layers)])
+        self.row_world = None
 
     def forward(self, sub: Sub, train: bool = False,
                 dtype: torch.dtype = torch.float32, generator=None):
         h, z = self.input_embeddings(sub, dtype)
         # the (layer-invariant) global out-degree, hoisted out of the layers
         if "out_deg" not in sub:
-            sub = dict(sub, out_deg=_out_degrees(sub))
+            sub = dict(sub, out_deg=_out_degrees(sub, self.row_world))
         norm = sub.get("edge_norm")
         for layer in self.layers:
             h, z = layer(sub, h, z, edge_norm=norm, train=train)
@@ -303,6 +309,10 @@ class UNCDMPNN(_Backbone):
             * sub["edge_mask"].float()[:, None]
         sums = onehot.T @ z.float()
         cnts = onehot.sum(0)[:, None]
+        if self.row_world is not None:                  # unc/model.py:717
+            both = all_reduce_sum(torch.cat([sums, cnts], 1),
+                                  self.row_world)
+            sums, cnts = both[:, :-1], both[:, -1:]
         r_bar = sums / (cnts + 1e-8)
         return h, z, r_bar
 
@@ -336,6 +346,7 @@ class CompGraphConv(nn.Module):
         self.use_bias = use_bias
         if use_bias:
             self.bias = _zeros(hidden_dim)
+        self.row_world = None
 
     def forward(self, sub: Sub, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, edge_norm=None, train: bool = False,
@@ -352,6 +363,7 @@ class CompGraphConv(nn.Module):
         msg = torch.where(sub["edge_mask"][:, None], msg, 0.0)
         agg = SegmentSumSorted.apply(                            # K1, bwd K2
             msg, sub["sk_rowptr"], sub["receivers"], sub["n_real"])
+        agg = all_reduce_sum(agg, self.row_world)       # unc/model.py:782
         if self.self_loop:
             loop = comp_func(node_feat, self.loop_rel.to(dt), self.comp_opt)
             out = (agg + loop @ self.loop_weight.to(dt)) * 0.3333333
@@ -393,12 +405,14 @@ class UNCCompGCN(_Backbone):
 
 
 def _flat_relation_agg(sub: Sub, src: torch.Tensor,
-                       weights: torch.Tensor) -> torch.Tensor:
+                       weights: torch.Tensor, world=None) -> torch.Tensor:
     """agg[v] = sum over the edges e -> v of src[e] @ W[rel(e)], relation
     by relation as the JAX package's scan (unc/model.py:802-828): mask
     the stream to relation r, K1 over the masked [E, din] stream, then
     partial @ W_r into a carry held in src's dtype (bf16 under amp, as
-    the JAX package's). 2R K1 launches forward, 2R K2 backward."""
+    the JAX package's). 2R K1 launches forward, 2R K2 backward. With
+    `world` the carry holds this rank's edges, and one sum over the
+    ranks after the loop completes it (unc/model.py:826-827)."""
     carry = torch.zeros(sub["node_mask"].shape[0], weights.shape[2],
                         dtype=src.dtype, device=src.device)
     valid = sub["edge_mask"]
@@ -408,7 +422,7 @@ def _flat_relation_agg(sub: Sub, src: torch.Tensor,
         partial = SegmentSumSorted.apply(                        # K1, bwd K2
             masked, sub["sk_rowptr"], sub["receivers"], sub["n_real"])
         carry = carry + partial @ weights[r]
-    return carry
+    return all_reduce_sum(carry, world)
 
 
 class RelGraphConvFlat(nn.Module):
@@ -437,6 +451,7 @@ class RelGraphConvFlat(nn.Module):
             self.bias = _zeros(hidden_dim)
         self.out_layer = (Dense(hidden_dim, hidden_dim, activation="relu",
                                 generator=generator) if iso_layer else None)
+        self.row_world = None
 
     def forward(self, sub: Sub, node_feat: torch.Tensor, edge_norm=None,
                 train: bool = False, generator=None) -> torch.Tensor:
@@ -445,7 +460,8 @@ class RelGraphConvFlat(nn.Module):
                                sub.get("sk2_order"), sub.get("sk2_rowptr"))
         if self.use_norm and edge_norm is not None:
             src = src * edge_norm.to(dt)
-        out = _flat_relation_agg(sub, src, self.weight.to(dt))
+        out = _flat_relation_agg(sub, src, self.weight.to(dt),
+                                 self.row_world)
         if self.self_loop:
             out = out + node_feat @ self.loop_weight.to(dt)
         if self.use_bias:
@@ -532,6 +548,8 @@ class UNCTrainModel(nn.Module):
         # stream, and the JAX package's lazy init creates none for them
         self.edge_fc = (Dense(h_dim, h_dim, generator=generator)
                         if backbone in ("DMPNN", "CompGCN") else None)
+        # the ranks holding the other edges (parallel/dist.split_rows)
+        self.row_world = None
 
     def forward(self, sub: Sub, train: bool = False,
                 dtype: torch.dtype = torch.float32, generator=None):
@@ -553,21 +571,37 @@ class UNCTrainModel(nn.Module):
         """mean(w_rel^2) + the masked mean square of each backbone output
         + the edge_fc alignment of the edge stream (model.py:691-715).
         Masks go by position: 0 node rows (node_mask), 1 edge rows
-        (edge_mask), 2 per-relation means (none)."""
-        reg = (self.w_relation ** 2).mean()
+        (edge_mask), 2 per-relation means (none). Each mean is a sum over
+        a count; with row_world both are summed over the ranks in one
+        all-reduce (unc/model.py:1124-1145), which leaves the means of
+        the rows every rank holds alike as they are."""
+        reg = (self.w_relation ** 2).mean()   # replicated: no sum over ranks
         if not isinstance(embedding, (tuple, list)):
             embedding = (embedding,)
-        for emb, mask in zip(embedding, (node_mask, edge_mask, None)):
-            reg = reg + _masked_mean_sq(emb, mask)
-        if edge_type is not None and len(embedding) > 1:
+        terms = [_masked_sq_sum(emb, mask) for emb, mask in
+                 zip(embedding, (node_mask, edge_mask, None))]
+        aligned = edge_type is not None and len(embedding) > 1
+        if aligned:
             mask = edge_type < self.num_rels
             if edge_mask is not None:
                 mask = mask & edge_mask
             diff = self.edge_fc(embedding[1]) - _onehot_rows(
                 self.w_relation, edge_type, clip=True)
             sq = (diff ** 2).sum(1)
-            cnt = mask.sum().clamp(min=1)
-            reg = reg + torch.where(mask, sq, 0.0).sum() / (cnt * self.h_dim)
+            terms.append((torch.where(mask, sq, 0.0).sum(), mask.sum()))
+        sums = [t[0] for t in terms]
+        cnts = [t[1] for t in terms]
+        if self.row_world is not None:
+            dev = sums[0].device
+            both = all_reduce_sum(torch.stack(sums + [
+                torch.as_tensor(c, dtype=torch.float32, device=dev)
+                for c in cnts]), self.row_world)
+            sums, cnts = list(both[: len(sums)]), list(both[len(sums):])
+        for i, (s, c) in enumerate(zip(sums, cnts)):
+            c = c.clamp(min=1) if torch.is_tensor(c) else max(c, 1.0)
+            if aligned and i == len(sums) - 1:
+                c = c * self.h_dim
+            reg = reg + s / c
         return reg
 
     def unsupervised_loss(self, embedding, edge_type, edge_mask, samples,
@@ -604,11 +638,13 @@ class UNCTrainModel(nn.Module):
         return predict_loss + self.reg_param * reg
 
 
-def _masked_mean_sq(x: torch.Tensor, mask=None) -> torch.Tensor:
+def _masked_sq_sum(x: torch.Tensor, mask=None):
+    """(sum of x^2 over the mask's rows, their element count): the two
+    parts of the JAX package's _masked_mean_sq (unc/model.py:1239-1245)."""
     if mask is None:
-        return (x ** 2).sum() / max(float(x.numel()), 1.0)
+        return (x ** 2).sum(), float(x.numel())
     m = mask.to(x.dtype)[:, None]
-    return ((x ** 2) * m).sum() / (m.sum() * x.shape[-1]).clamp(min=1.0)
+    return ((x ** 2) * m).sum(), m.sum() * x.shape[-1]
 
 
 def optax_sigmoid_bce(logits: torch.Tensor,

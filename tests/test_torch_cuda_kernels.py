@@ -98,20 +98,23 @@ def test_k1_is_deterministic(cuda, dtype, width, size):
                                bits(first))
 
 
-@pytest.mark.parametrize("case", ["hub", "empty", "one_row", "rows"])
+@pytest.mark.parametrize("case", ["hub", "empty", "one_row", "rows",
+                                  "empty_rows"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_merge_path_cases(cuda, dtype, case):
     """A hub of 100,000 edges among short rows, a row pointer with every
-    row empty, all edges in one row (V = 1), and a row index (rows=)
-    against the permuted copy it replaces (bitwise) and the plain
-    version; the pad tail (1e3) is never read."""
+    row empty, all edges in one row (V = 1), a row index (rows=) against
+    the permuted copy it replaces (bitwise) and the plain version, and an
+    empty row index under an empty row pointer (an edge-partitioned rank
+    whose share holds no real edge); the pad tail (1e3) is never
+    read."""
     rng = np.random.default_rng(13)
     v, width = 2000, 101
     recv = np.sort(np.concatenate([np.full(100000, 700),
                                    rng.integers(0, v, 20000)]))
     row_ptr = np.searchsorted(recv, np.arange(v + 1)).astype(np.int32)
     n = len(recv)
-    if case == "empty":
+    if case in ("empty", "empty_rows"):
         row_ptr[:] = 0
     elif case == "one_row":
         row_ptr = np.array([0, n], np.int32)
@@ -121,17 +124,19 @@ def test_k1_merge_path_cases(cuda, dtype, case):
     rp = torch.from_numpy(row_ptr).to(cuda)
     rows = (torch.from_numpy(rng.permutation(n)).to(cuda)
             if case == "rows" else None)
+    if case == "empty_rows":
+        rows = torch.zeros(0, dtype=torch.int64, device=cuda)
     with torch.inference_mode():
         got = sk.segment_sum_sorted(m, rp, rows=rows)
         want = sk.segment_sum_sorted_plain(m, rp, rows)
         abs_sum = sk.segment_sum_sorted_plain(m.float().abs(), rp, rows)
-        if rows is not None:
+        if case == "rows":
             copy_sum = sk.segment_sum_sorted(m.index_select(0, rows), rp)
             assert torch.equal(bits(got), bits(copy_sum))
     torch.cuda.synchronize()
     assert got.shape == (len(row_ptr) - 1, width) and got.dtype == dtype
     assert k1_within_bound(got, want, abs_sum, dtype)
-    if case == "empty":
+    if case in ("empty", "empty_rows"):
         assert (got == 0).all()
 
 

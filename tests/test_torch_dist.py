@@ -1,0 +1,355 @@
+"""The port's process groups (dualmessagepassing_tpu_torch/parallel/) on
+the CPU over gloo, and the rank functions that tests/test_torch_dp.py and
+tests/test_torch_ep_unc.py launch.
+
+This file imports no JAX: the ranks are spawned processes that import it
+by name, and the machine with the card has no JAX. The JAX side of those
+comparisons runs in the pytest process only.
+
+Tolerances here: the sums over two ranks against one process's sum,
+1e-6 of each tensor's largest magnitude (float32 in another order).
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dualmessagepassing_tpu_torch import graph as tg
+from dualmessagepassing_tpu_torch.models import scm_models as sm
+from dualmessagepassing_tpu_torch.ops.segment_kernel import attach_csr_plan
+from dualmessagepassing_tpu_torch.parallel import dist as pd
+from dualmessagepassing_tpu_torch.parallel import dp
+from dualmessagepassing_tpu_torch.parallel import ep_unc
+from dualmessagepassing_tpu_torch.train import checkpoint as ck
+from dualmessagepassing_tpu_torch.train import scm_driver as sd
+from dualmessagepassing_tpu_torch.unc import driver as ud
+from dualmessagepassing_tpu_torch.unc import model as um
+
+# seconds a test's spawned ranks may take, and a collective may wait
+RUN_TIMEOUT, COLLECTIVE_TIMEOUT = 240.0, 120.0
+
+
+def run_ranks(fn, tmp_path, *args, size=2, timeout=RUN_TIMEOUT):
+    """fn(world, *args) on `size` gloo ranks on the CPU, one thread each."""
+    return pd.launch(fn, size, backend="gloo", devices=["cpu"] * size,
+                     init_file=str(tmp_path / f"rdv_{fn.__name__}"),
+                     args=args, timeout=timeout,
+                     collective_timeout=COLLECTIVE_TIMEOUT, threads=1)
+
+
+def _numpy(tensors: dict) -> dict:
+    return {k: v.detach().cpu().numpy().copy() for k, v in tensors.items()}
+
+
+# -----------------------------------------------------------------------------
+# SCM data parallelism (tests/test_torch_dp.py)
+# -----------------------------------------------------------------------------
+
+def scm_model(spec, device="cpu"):
+    m = sm.build_model(spec["cfg"], device=device)
+    m.load_state_dict(sm.params_from_flax(spec["params"], spec["stats"]))
+    return m
+
+
+def scm_batch(spec, rows=None):
+    """(pattern, graph, counts, node weights, edge weights) of the spec's
+    records, the rows given or all."""
+    rows = np.arange(len(spec["pats"])) if rows is None else rows
+    pats = [spec["pats"][i] for i in rows]
+    gras = [spec["gras"][i] for i in rows]
+    return (tg.batch_graphs(pats), tg.batch_graphs(gras),
+            *(torch.from_numpy(spec[k][rows]) for k in ("counts", "nw", "ew")))
+
+
+def _dp_steps(world, spec, amp=False, chunks=None, steps=None):
+    """Steps of a DP train step on this rank's rows -> (model, step,
+    per-step losses, per-step gradients)."""
+    model = scm_model(spec)
+    tx = sd.make_optimizer(model.parameters(), spec["lr"])
+    step = sd.make_train_step(model, tx, return_weights="nodeedge",
+                              eval_metric="MAE", amp=amp,
+                              accum_chunks=chunks, world=world)
+    sd.dp_replicate_state(step)
+    batch = scm_batch(spec, dp.shard_rows(len(spec["pats"]), world,
+                                          step.chunks))
+    losses, grads = [], []
+    for s in range(steps or spec["steps"]):
+        out = step(*batch, *spec["scal"], spec["lr_mult"])
+        losses.append({k: float(v) for k, v in out.items()})
+        grads.append(_numpy({k: p.grad for k, p in model.named_parameters()}))
+        pin(model, spec["pins"][s] if spec.get("pins") else {})
+    return model, step, losses, grads
+
+
+def pin(model, values: dict) -> None:
+    """Set the named parameters to the given arrays."""
+    with torch.no_grad():
+        for k, v in values.items():
+            model.get_parameter(k).copy_(torch.from_numpy(v))
+
+
+def scm_dp_rank(world, specs, ckpt_dir):
+    """Per case of `specs` the DP steps' losses, gradients and final state;
+    the ragged path's gradient (the whole batch on every rank); amp with
+    two microbatches; a checkpoint of the bn case saved by rank 0 and
+    restored into a fresh DP model on every rank."""
+    out = {}
+    for name, spec in specs.items():
+        model, step, losses, grads = _dp_steps(world, spec)
+        out[name] = dict(losses=losses, grads=grads,
+                         state=_numpy(model.state_dict()))
+        # the ragged path: every rank the whole batch, no cross-rank
+        # statistics, the gradients summed
+        m2 = scm_model(spec)
+        s2 = sd.make_train_step(m2, sd.make_optimizer(m2.parameters(),
+                                                      spec["lr"]),
+                                return_weights="nodeedge", eval_metric="MAE",
+                                world=world)
+        s2(*scm_batch(spec), *spec["scal"], spec["lr_mult"], sharded=False)
+        out[name]["ragged_grads"] = _numpy(
+            {k: p.grad for k, p in m2.named_parameters()})
+        if name == "bn":
+            path = os.path.join(ckpt_dir, "epoch1")
+            if world.rank == 0:
+                ck.save_state(path, model, step.optimizer,
+                              step.optimizer.count)
+            pd.dist.barrier()
+            fresh = scm_model(spec)
+            tx = sd.make_optimizer(fresh.parameters(), spec["lr"])
+            if world.rank == 0:
+                ck.restore_state(path, fresh, tx)
+            s3 = sd.make_train_step(fresh, tx, world=world)
+            sd.dp_replicate_state(s3)     # rank 0's restored state
+            out["resumed"] = dict(state=_numpy(fresh.state_dict()),
+                                  count=tx.count,
+                                  mu=[s["mu"].numpy().copy()
+                                      for s in tx.state])
+    spec = specs["bn"]
+    model, _, losses, _ = _dp_steps(world, dict(spec, pins=None), amp=True,
+                                    chunks=2)
+    out["amp_chunks"] = dict(losses=losses, state=_numpy(model.state_dict()))
+    return out
+
+
+# -----------------------------------------------------------------------------
+# UNC edge partitioning (tests/test_torch_ep_unc.py)
+# -----------------------------------------------------------------------------
+
+def unc_model(spec):
+    m = um.UNCTrainModel(spec["n"], spec["r"], spec["h"],
+                         num_hidden_layers=spec["layers"],
+                         reg_param=spec["reg"], backbone=spec["backbone"])
+    m.load_state_dict(um.params_from_flax(spec["params"], spec["stats"]))
+    return m
+
+
+def ep_shard(padded, world, sender_plan=True):
+    return ud.to_device(ep_unc.attach_ep_csr_plans(
+        ep_unc.shard_sub(padded, world), sender_plan=sender_plan), "cpu")
+
+
+def unc_ep_rank(world, specs, train):
+    """Per backbone of `specs`: the edge-partitioned eval forward (node
+    rows, this rank's edge rows, per-relation means), the full loss and
+    every gradient of a train-mode forward (BatchNorm on), and the
+    parameters, statistics and losses of two steps of the clipped Adam
+    on its cosine schedule, the BN-fed biases pinned after each step to
+    the values the spec gives. Then train_unc as this rank of `world` on
+    the HIN `train` gives (triplets, nodes, relations): one epoch and the
+    export."""
+    t, n, r = train
+    model = um.UNCTrainModel(n, r, 8, num_hidden_layers=1, reg_param=0.01,
+                             generator=torch.Generator().manual_seed(0))
+    embs, coverage = ud.train_unc(model, t, n, r, graph_batch_size=40,
+                                  n_epochs=1, sample_depth=2, sample_width=4,
+                                  log=print, world=world)
+    out = {"train_unc": dict(embs=embs, coverage=coverage,
+                             state=_numpy(model.state_dict()))}
+    for name, spec in specs.items():
+        m = unc_model(spec)
+        sub = ep_shard(spec["batches"][0], world)
+        res = {"fwd": [t.numpy().copy() for t in
+                       ep_unc.make_ep_apply(m, world)(sub)]}
+        with pd.split_rows(m, world):
+            o = um.apply_unc_forward(m, sub, train=True)
+            loss = m.unsupervised_loss(
+                o, sub["edge_type"], sub["edge_mask"], sub["samples"],
+                sub["labels"], sub["sample_mask"], sub["node_mask"])
+            (loss / world.size).backward()
+        pd.all_reduce_grads(m.parameters(), world)
+        res["loss"] = loss.item()
+        res["grads"] = _numpy({k: p.grad for k, p in m.named_parameters()})
+
+        m = unc_model(spec)
+        opt = ud.make_unc_optimizer(m, spec["lr"], spec["total_steps"], 1.0)
+        step = ep_unc.make_ep_train_step(m, opt, world)
+        res["losses"] = []
+        for b, pins in zip(spec["batches"], spec["pins"]):
+            res["losses"].append(step(ep_shard(b, world)).item())
+            pin(m, pins)
+        res["state"] = _numpy(m.state_dict())
+        out[name] = res
+    return out
+
+
+# -----------------------------------------------------------------------------
+# tests of the process groups themselves
+# -----------------------------------------------------------------------------
+
+def _toy_loss(x, w, world):
+    """A replicated tanh of edge-sharded partial sums, plus a replicated
+    regulariser: (1/2) sum over nodes of tanh(agg @ w)^2 + |w|^2."""
+    agg = torch.zeros(4, 3).index_add_(0, x["recv"], x["msg"] @ w)
+    agg = pd.all_reduce_sum(agg, world)
+    return 0.5 * (torch.tanh(agg) ** 2).sum() + (w ** 2).sum()
+
+
+def _toy_data():
+    rng = np.random.default_rng(0)
+    return {"msg": torch.from_numpy(rng.normal(size=(10, 3)).astype(
+        np.float32)), "recv": torch.from_numpy(rng.integers(0, 4, 10))}
+
+
+def toy_rank(world, w0):
+    x = _toy_data()
+    rows = slice(world.rank * 5, (world.rank + 1) * 5)
+    w = torch.nn.Parameter(torch.from_numpy(w0))
+    loss = _toy_loss({k: v[rows] for k, v in x.items()}, w, world)
+    (loss / world.size).backward()
+    pd.all_reduce_grads([w], world)
+    return loss.item(), w.grad.numpy().copy()
+
+
+def hang_rank(world, seconds):
+    if world.rank == 1:
+        import time
+        time.sleep(seconds)
+    pd.dist.barrier()
+
+
+def fail_rank(world):
+    if world.rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    pd.dist.barrier()
+
+
+def test_sum_over_ranks_has_the_true_adjoint(tmp_path):
+    """Two gloo ranks, each with half of the edges: the loss and the
+    gradient equal one process's over all edges."""
+    w0 = np.random.default_rng(1).normal(size=(3, 3)).astype(np.float32)
+    w = torch.nn.Parameter(torch.from_numpy(w0.copy()))
+    want = _toy_loss(_toy_data(), w, None)
+    want.backward()
+    got = run_ranks(toy_rank, tmp_path, w0)
+    for loss, grad in got:
+        np.testing.assert_allclose(loss, want.item(), rtol=1e-6)
+        np.testing.assert_allclose(grad, w.grad.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.grad.abs().max()))
+    np.testing.assert_array_equal(got[0][1], got[1][1])
+
+
+@pytest.mark.parametrize("fn, args, error, timeout", [
+    (hang_rank, (120.0,), TimeoutError, 12.0),
+    (fail_rank, (), RuntimeError, RUN_TIMEOUT),
+], ids=["hang", "fail"])
+def test_launcher_fails_fast_and_stops_every_rank(tmp_path, fn, args,
+                                                  error, timeout):
+    """A rank that hangs ends the run at the launcher's timeout, one that
+    raises at once with its traceback; no rank outlives the call."""
+    import multiprocessing
+    import time
+    t0 = time.monotonic()
+    with pytest.raises(error) as info:
+        run_ranks(fn, tmp_path, *args, timeout=timeout)
+    if fn is hang_rank:
+        assert time.monotonic() - t0 < timeout + 30.0
+    else:
+        assert "rank 1 fails on purpose" in str(info.value)
+    assert not (tmp_path / f"rdv_{fn.__name__}").exists()
+    assert not multiprocessing.active_children()
+
+
+def test_launcher_refuses_a_used_rendezvous_file(tmp_path):
+    (tmp_path / "rdv_toy_rank").write_text("")
+    with pytest.raises(ValueError, match="exists"):
+        run_ranks(toy_rank, tmp_path, np.eye(3, dtype=np.float32))
+    with pytest.raises(ValueError, match="devices"):
+        pd.launch(toy_rank, 2, backend="gloo", devices=["cpu"],
+                  init_file=str(tmp_path / "other"))
+
+
+def test_shard_rows_follows_the_jax_steps_microbatches():
+    world = [pd.World(r, 2, torch.device("cpu"), "gloo") for r in range(2)]
+    np.testing.assert_array_equal(dp.shard_rows(8, world[0]), [0, 1, 2, 3])
+    np.testing.assert_array_equal(dp.shard_rows(8, world[1]), [4, 5, 6, 7])
+    # two microbatches of 4: rank r holds its half of each
+    np.testing.assert_array_equal(dp.shard_rows(8, world[0], 2),
+                                  [0, 1, 4, 5])
+    np.testing.assert_array_equal(dp.shard_rows(8, world[1], 2),
+                                  [2, 3, 6, 7])
+    assert dp.shard_rows(7, world[0]) is None         # ragged: whole batch
+    assert dp.shard_rows(6, world[0], 2) is None
+    x = torch.arange(8)
+    assert dp.shard_batch(world[1], x).tolist() == [4, 5, 6, 7]
+    with pytest.raises(ValueError):
+        dp.shard_batch(world[0], torch.arange(7))
+
+
+def test_split_rows_sets_and_restores_row_world():
+    from dualmessagepassing_tpu_torch.models.layers import MaskedBatchNorm
+    m = torch.nn.Sequential(MaskedBatchNorm(3), torch.nn.Linear(3, 3),
+                            MaskedBatchNorm(3))
+    w = pd.World(0, 1, torch.device("cpu"), "gloo")
+    with pd.split_rows(m, w):
+        assert [x.row_world for x in (m[0], m[2])] == [w, w]
+    assert m[0].row_world is None and m[2].row_world is None
+    assert not hasattr(m[1], "row_world")
+
+
+def test_ep_shards_and_plans_cover_the_subgraph():
+    """shard_sub gives each rank e_max / size rows: an even share of the
+    real edges in order, then pads; together the shares hold every real
+    edge once and every pad row once. Each share's plans name its real
+    edges once, by receiver and by sender. An envelope that does not
+    divide is refused, as in the JAX package; so is a mask that is not a
+    prefix."""
+    from test_torch_unc_data import tiny_hin
+    from dualmessagepassing_tpu_torch.unc.data import WholeGraph
+    t, n, r = tiny_hin(seed=3, n=60, e=240)
+    g = WholeGraph(n, r, t)
+    e_max = ep_unc.pad_e_max(g.num_edges, 3)
+    padded = ud.sample_batch(g, t[:40], "randomwalk", 2, 4, 0.5, 2, n,
+                             e_max, 120, np.random.default_rng(0))
+    n_real = int(padded["edge_mask"].sum())
+    assert 0 < n_real < e_max // 3
+    worlds = [pd.World(k, 3, torch.device("cpu"), "gloo") for k in range(3)]
+    shards = [ep_unc.attach_ep_csr_plans(ep_unc.shard_sub(padded, w),
+                                         sender_plan=True) for w in worlds]
+    counts = [s["n_real"] for s in shards]
+    assert sum(counts) == n_real and max(counts) - min(counts) <= 1
+    for key in ep_unc.EDGE_KEYS:
+        assert all(len(s[key]) == e_max // 3 for s in shards)
+        np.testing.assert_array_equal(
+            np.concatenate([s[key][:s["n_real"]] for s in shards]),
+            padded[key][:n_real])
+        np.testing.assert_array_equal(
+            np.concatenate([s[key][s["n_real"]:] for s in shards]),
+            padded[key][n_real:])
+    for s in shards:
+        assert s["edge_mask"][:s["n_real"]].all()
+        assert not s["edge_mask"][s["n_real"]:].any()
+        np.testing.assert_array_equal(
+            np.diff(s["sk_rowptr"]),
+            np.bincount(s["receivers"][:s["n_real"]], minlength=n))
+        send = s["senders"][s["sk2_order"]]
+        assert (np.diff(send) >= 0).all()
+        assert sorted(s["sk2_order"].tolist()) == list(range(s["n_real"]))
+    odd = {k: (v[:-1] if k in ep_unc.EDGE_KEYS else v)
+           for k, v in padded.items()}
+    with pytest.raises(ValueError, match="pad_e_max"):
+        ep_unc.shard_sub(odd, worlds[0])
+    holes = dict(padded, edge_mask=np.roll(padded["edge_mask"], 1))
+    with pytest.raises(ValueError, match="prefix"):
+        ep_unc.shard_sub(holes, worlds[0])

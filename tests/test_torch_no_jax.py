@@ -38,7 +38,9 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     # the SCM sequence networks
     "models.edgeseq",
     # the attention predict nets
-    "models.pred_attn")]
+    "models.pred_attn",
+    # scale-out over torch.distributed
+    "parallel", "parallel.dist", "parallel.dp", "parallel.ep_unc")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -128,10 +128,13 @@ def test_config_defaults_equal_jax():
     assert got == jcfg.get_train_config([])
 
 
-def test_refused_at_parse_time(capsys):
-    """Data parallelism is refused before any data is built, naming the
-    slice that brings it; all nine representation networks of the JAX
-    CLI parse, the sequence networks to the JAX CLI's config."""
+def test_refused_at_parse_time(tmp_path, monkeypatch):
+    """All nine representation networks of the JAX CLI parse, the
+    sequence networks to the JAX CLI's config. Data parallelism (refused
+    here until slice E1 ported it) trains: --dp_devices 2 --device cpu
+    runs an epoch on two gloo ranks and rank 0 writes the run; what the
+    JAX CLI refuses is refused before any data is built: a batch size
+    that the ranks do not divide, and more ranks than visible cards."""
     for net in ("CNN", "RNN", "TXL"):
         argv = ["--rep_net", net, "--rep_rnn_type", "GRU",
                 "--rep_cnn_kernel_sizes", "3"]
@@ -140,9 +143,21 @@ def test_refused_at_parse_time(capsys):
         assert got == jcfg.get_train_config(argv)
     for net in ("DMPNN", "CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP"):
         assert tcfg.get_train_config(["--rep_net", net])["rep_net"] == net
-    with pytest.raises(SystemExit):
-        ttrain.main(TINY + ["--dp_devices", "2"])
-    assert "slice E" in capsys.readouterr().err
+    argv = TINY + ["--dp_devices", "2", "--train_epochs", "1",
+                   "--save_model_dir", str(tmp_path / "dp")]
+    run = ttrain.main(argv)
+    for name in ("log.txt", "config.json", "dev_results0.json",
+                 "test_results0.json"):
+        assert os.path.exists(os.path.join(run, name)), name
+    log = open(os.path.join(run, "log.txt")).read()
+    assert "data parallel: 2 ranks over gloo" in log
+    assert os.listdir(tmp_path / "dp") == [os.path.basename(run)]
+    with pytest.raises(ValueError, match="divisible"):
+        ttrain.main(TINY + ["--dp_devices", "3"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="visible"):
+        ttrain.main([a if a != "cpu" else "cuda" for a in TINY]
+                    + ["--dp_devices", "2"])
 
 
 def test_attention_predict_nets_refused_at_parse_time():

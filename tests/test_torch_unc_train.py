@@ -573,11 +573,15 @@ def test_cli_parses_every_reference_command_line():
     (["--supervised", "True", "--attributed", "True"], NotImplementedError),
     (["--model", "RGCN", "--supervised", "True", "--attributed", "True"],
      NotImplementedError),
+    # the owner-sharded halo mode is slice E3's; edge partitioning (psum)
+    # is ported, but not over more ranks than visible cards (one here)
     (["--ep_mode", "halo"], ValueError),
     (["--ep_devices", "2"], ValueError),
-    (["--ep_devices", "1", "--ep_partition", "bfs"], ValueError),
+    (["--ep_devices", "1", "--ep_partition", "bfs", "--ep_mode", "halo"],
+     ValueError),
 ])
-def test_cli_refuses_what_has_no_counterpart(extra, error):
+def test_cli_refuses_what_has_no_counterpart(extra, error, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(error):
         tcli.check_supported(tcli.get_args(["--link", "x"] + extra))
 
@@ -616,12 +620,36 @@ def test_cli_runs_the_jax_clis_measured_best_command_line(tmp_path, capsys):
                        ).all()
 
 
-def test_cli_still_refuses_sharded_training():
-    with pytest.raises(ValueError, match="ep_devices 2"):
+def test_cli_still_refuses_sharded_training(tmp_path, capfd):
+    """The owner-sharded halo mode is refused, naming slice E3;
+    --ep_devices 2 --ep_mode psum --device cpu trains edge-partitioned
+    over two spawned gloo ranks end to end (train_unc(world=...)) and writes
+    every node's embedding; under supervised training --ep_devices is a
+    logged no-op. (Until slice E2 every --ep_devices > 0 was refused.)"""
+    with pytest.raises(ValueError, match="E3"):
         tcli.check_supported(tcli.get_args(
-            ["--link", "x", "--ep_devices", "2", "--scatter_backend",
-             "windowed"]))
+            ["--link", "x", "--ep_devices", "2", "--ep_mode", "halo",
+             "--scatter_backend", "windowed"]))
     assert tcli.check_supported(tcli.get_args(["--link", "x"])) == []
+    notes = tcli.check_supported(tcli.get_args(
+        ["--link", "x", "--ep_devices", "2", "--supervised", "True",
+         "--device", "cpu"]))
+    assert len(notes) == 1 and "does not apply" in notes[0]
+    link, n = _link_file(tmp_path)
+    out = tmp_path / "emb.dat"
+    argv = ["--link", str(link), "--output", str(out), "--n_hidden", "8",
+            "--graph_batch_size", "40", "--n_epochs", "1",
+            "--sample_depth", "2", "--sample_width", "4",
+            "--ep_devices", "2", "--ep_mode", "psum", "--device", "cpu"]
+    assert tcli.check_supported(tcli.get_args(argv)) == []
+    tcli.main(argv)
+    lines = out.read_text().splitlines()
+    assert len(lines) == n + 1
+    assert np.isfinite([float(x) for line in lines[1:]
+                        for x in line.split("\t")[1].split()]).all()
+    logged = capfd.readouterr().out
+    assert "Epoch 00000 | Loss" in logged
+    assert "100.0% node embeddings are saved." in logged
 
 
 def test_cli_trains_on_the_cpu(tmp_path):
