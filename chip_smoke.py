@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100): UNC training
 and embedding export, the kernel bench, and SCM subgraph counting and
 matching with DMPNN, the other graph networks, the sequence networks,
-the attention and the memory predict nets, with the port's four CUDA
-kernels built from this checkout.
+the attention and the memory predict nets, and scale-out over
+torch.distributed (data parallel, edge-partitioned and owner-sharded
+halo training, the north-star gate), with the port's four CUDA kernels
+built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -210,7 +212,23 @@ Phases (any failure raises and the script exits non-zero):
              then train_epoch (one epoch) and
              train_unc (BACKBONE_LINKS links) over the two gloo ranks,
              launches counted from zero. The two ranks' step times are
-             those of two ranks sharing one card, no scale-out speed.
+             those of two ranks sharing one card, no scale-out speed;
+ 19 halo     owner-sharded (halo) UNC training (parallel/halo_unc.py):
+             phase 18's PubMed batch and models partitioned over two
+             ranks sharing cuda:0 over gloo (degree partitioner: Vp =
+             31,555, B = Vp, Vt = 94,666) and a world of one over NCCL
+             (in phase 18's NCCL process), every backbone's loss and
+             gradients (f32, amp bf16) held against phase 18's one-rank
+             step under phase 5's bounds and phase 18's flip rule, K1's
+             and K2's launches per rank; the DMPNN step timed, the
+             exchange of one layer and the loss's gather timed (CUDA
+             events and host ms); K1 and K2 at a halo
+             rank's shapes against their plain versions, timed (early in
+             the run, beside phase 18's); then train_unc (bfs, amp,
+             BACKBONE_LINKS links, every node's row exported) and the
+             north-star gate (gates/northstar.py at its CI envelope: v
+             2,000, e 40,000, 6 amp steps, a checkpoint restored mid-run)
+             over the two gloo ranks, launches counted from zero.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -218,9 +236,10 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 and 11-18 print {"paths": {...}} before the kernels line: the
+Phases 7-9 and 11-19 print {"paths": {...}} before the kernels line: the
 kernel launches of each of their training runs, counted from zero just
-before it and read just after (phase 18's per rank, rank 0's printed).
+before it and read just after (phases 18-19's per rank, rank 0's
+printed).
 
 The second-to-last line is {"kernels": [...]}: per kernel its launches
 (K1, K2: phase 5's training and export, forward and backward; K3: phase
@@ -240,7 +259,11 @@ degree tables as "_edgeseq_deg", its degree steps' launches as
 "launches_scm_attn_step", phase 17's as "launches_scm_mem_step"; phase
 18's DP rank shape as "_dp_rank", its launches a step as
 "launches_dp_rank_step"; K1's and K2's EP shard shape as "_ep_shard",
-their launches per EP rank and step as "launches_ep_rank_step"), K4 at
+their launches per EP rank and step as "launches_ep_rank_step"; phase
+19's halo rank shapes as "_halo_vp" (K1 into Vp, H = 50),
+"_halo_vt_send" (K1 into Vt through the sender order, W = 101) and
+"_halo_table" (K2 from the [Vt, 101] table), their launches per halo
+rank and step as "launches_halo_rank_step"), K4 at
 the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
@@ -291,11 +314,16 @@ from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
                                                     build_cuda_kernels)
 from dualmessagepassing_tpu_torch.parallel import dist, dp
-from dualmessagepassing_tpu_torch.parallel.dist import (all_reduce_grads,
+from dualmessagepassing_tpu_torch.gates import northstar
+from dualmessagepassing_tpu_torch.parallel.dist import (all_gather_rows,
+                                                        all_reduce_grads,
                                                         all_reduce_sum,
+                                                        halo_exchange,
                                                         split_rows)
 from dualmessagepassing_tpu_torch.parallel.ep_unc import (
     attach_ep_csr_plans, make_ep_train_step, pad_e_max, shard_sub)
+from dualmessagepassing_tpu_torch.parallel.halo_unc import (
+    halo_envelope, halo_rank_shard, make_halo_train_step)
 from dualmessagepassing_tpu_torch.unc.data import WholeGraph, save_embeddings
 from dualmessagepassing_tpu_torch.unc import evaluate
 from dualmessagepassing_tpu_torch.unc.driver import (
@@ -516,6 +544,11 @@ DP_LATER_LOSS_REL = 1e-4
 FLIP_TOL, MAX_FLIPS = 1e-7, 8
 # the edge-partitioned backbones (DMPNN timed, the others one step)
 EP_BACKBONES = ("DMPNN", "CompGCN", "RGCN", "RGIN")
+
+# --- phase 19: owner-sharded (halo) training --------------------------------
+# the partitioner of the halo steps and kernel shapes (train_unc runs
+# bfs); at two ranks on PubMed's 63,109 nodes Vp = 31,555 and B = Vp
+HALO_PARTITION = "degree"
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -2833,15 +2866,17 @@ def bn_hooks(model, record=None, force=None) -> list:
     return handles
 
 
-def ep_loss_grads(model, sub, amp, world=None, record=None, force=None):
+def ep_loss_grads(model, sub, amp, world=None, record=None, force=None,
+                  owner=False):
     """Loss, float32 gradients (numpy) and the kernel launches of one
     train-mode forward and backward of a copy of `model`, over the ranks
     of `world` where given (each rank seeds 1 / size, the gradients
-    summed over the ranks); record and force are bn_hooks'."""
+    summed over the ranks; owner=True: the node rows owner-sharded, the
+    halo mode); record and force are bn_hooks'."""
     m = copy.deepcopy(model)
     handles = bn_hooks(m, record, force)
     sk.reset_launch_counts()
-    with split_rows(m, world):
+    with split_rows(m, world, owner=owner):
         out = apply_unc_forward(m, sub, amp=amp, train=True)
         loss = m.unsupervised_loss(
             out, sub["edge_type"], sub["edge_mask"], sub["samples"],
@@ -2876,15 +2911,19 @@ def near_zero(record, node_mask, n_real) -> dict:
     return out
 
 
-def shard_values(record, near, shard_rows) -> dict:
+def shard_values(record, near, shard_rows, node_rows=None) -> dict:
     """This rank's BatchNorm outputs at the elements of `near` it holds:
-    node rows (every rank holds them) as they are, edge rows through
-    shard_rows (global real edge -> this rank's row, -1 where another
-    rank holds it) -> name -> values (0 where not held)."""
+    edge rows through shard_rows (global real edge -> this rank's row,
+    -1 where another rank holds it), node rows through node_rows (the
+    same for the subgraph's node rows; None: every rank holds them as
+    they are) -> name -> values (0 where not held)."""
     out = {}
     for name, (rows, cols, _, _) in near.items():
         x = record[name].cpu().numpy()
-        local = shard_rows[rows] if "emlp" in name else rows
+        if "emlp" in name:
+            local = shard_rows[rows]
+        else:
+            local = rows if node_rows is None else node_rows[rows]
         held = local >= 0
         out[name] = np.zeros(len(rows), x.dtype)
         out[name][held] = x[local[held], cols[held]]
@@ -2976,14 +3015,18 @@ def dist_train_unc(world, spec, dev) -> dict:
 
 
 def dist_rank(world, spec) -> dict:
-    """One rank of phase 18: the DP steps, the EP gradients and step, and
-    (spec["runs"]) train_epoch and train_unc over the ranks."""
+    """One rank of phase 18: the DP steps, the EP gradients and step,
+    (spec["halo"]) phase 19's halo gradients, step and collectives on
+    the same batch, and (spec["runs"]) train_epoch and train_unc over
+    the ranks."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = world.device
     t0 = time.perf_counter()
     out = {"dp": dist_dp_steps(world, spec["dp"], dev),
            "ep": dist_ep(world, spec["ep"], dev)}
+    if spec.get("halo"):
+        out["halo"] = dist_halo(world, spec["ep"], dev)
     if spec.get("runs"):
         out["dp_epoch"] = dist_dp_epoch(world, spec["runs"]["dp_epoch"], dev)
         out["train_unc"] = dist_train_unc(world, spec["runs"]["train_unc"],
@@ -3081,6 +3124,95 @@ def dist_inputs(seed, graph, triplets) -> tuple:
     return scm_batch(SCM_BSZ, seed + 1, scm_flagship_config()), padded
 
 
+def hold_against_one_rank(tag, key, runs, ref, near, models, sub, dev,
+                          split_nodes) -> dict:
+    """Each backbone's loss, f32 and amp bf16 gradients and launches of
+    every rank of each run (label, results: res[key]["grads"][backbone]
+    [amp] = (loss, gradients, launches), res[key]["near"][backbone] =
+    shard_values) against the one-rank step's (`ref`: the same, of
+    ep_loss_grads on the whole batch `sub`), under phase 5's f32 bounds
+    and amp rule; the f32 gradients against the one-rank step taken
+    again on the sharded step's side of the leaky ReLU inputs whose sign
+    the two runs differ on (FLIP_TOL, MAX_FLIPS). Edge rows are held by
+    one rank each; node rows by every rank, or (split_nodes) by their
+    owner alone. -> worst share of the bound, by run and backbone."""
+    worst = {}
+    for b in EP_BACKBONES:
+        want = (DMPNN_STEP_LAUNCHES if b == "DMPNN"
+                else BACKBONE_STEP_LAUNCHES[b])
+        (lc, g32, _), (la, ga, _) = ref[b][False], ref[b][True]
+        for label, ranks in runs:
+            ratios, flip_note, gc = {}, "", g32
+            if b in near:
+                force, total, far = {}, 0, 0.0
+                for name, (rows, cols, refv, scale) in near[b].items():
+                    got = (sum(r[key]["near"][b][name] for r in ranks)
+                           if split_nodes or "emlp" in name
+                           else ranks[0][key]["near"][b][name])
+                    flip = np.sign(got) != np.sign(refv)
+                    if flip.any():
+                        force[name] = (rows[flip], cols[flip],
+                                       np.sign(got[flip]))
+                        far = max(far, float(np.abs(got[flip]).max()) / scale)
+                    total += int(flip.sum())
+                check(total <= MAX_FLIPS and far <= FLIP_TOL,
+                      f"dist {tag} {b} {label}: {total} leaky ReLU inputs on "
+                      f"the other side of zero than in the one-rank step, "
+                      f"up to {far:.2e} of their scale from it (at most "
+                      f"{MAX_FLIPS} within {FLIP_TOL:g} are rounding)")
+                if force:
+                    gc = ep_loss_grads(copy.deepcopy(models[b]).to(dev), sub,
+                                       False, force=force)[1]
+                flip_note = (f"; {total} leaky ReLU inputs on the other side "
+                             f"of zero than in the one-rank step (up to "
+                             f"{far:.2e} of their scale from it), the "
+                             f"one-rank f32 step taken again on the {tag} "
+                             "step's side of them")
+            gmax = max(float(np.abs(g).max()) for g in gc.values())
+            for r, res in enumerate(ranks):
+                for amp in (False, True):
+                    ld, gd, launches = res[key]["grads"][b][amp]
+                    name = "amp bf16" if amp else "f32"
+                    check(launches == want, f"dist {tag} {b} {label} rank "
+                          f"{r} {name}: launched {launches}, expected {want}")
+                    ref_l = la if amp else lc
+                    check(np.isfinite(ld) and abs(ld - ref_l) <= (
+                        1e-3 if amp else 1e-5) * abs(ref_l),
+                        f"dist {tag} {b} {label} rank {r} {name}: loss {ld} "
+                        f"vs one rank {ref_l}")
+                    ratio = 0.0
+                    for k, g in (g32 if amp else gc).items():
+                        scale = float(np.abs(g).max())
+                        err = float(np.abs(gd[k] - g).max())
+                        if amp:
+                            bound = (TRAIN_AMP_FACTOR * float(
+                                np.abs(ga[k] - g).max()) + 2.0 ** -8 * scale)
+                        else:
+                            bound = (TRAIN_F32_REL * scale
+                                     + TRAIN_F32_GLOBAL * gmax)
+                        check(err <= bound, f"dist {tag} {b} {label} rank "
+                              f"{r} {name} {k}: err {err:.3e} exceeds "
+                              f"{bound:.3e}")
+                        ratio = max(ratio, err / bound)
+                    if amp:
+                        l2 = lambda x, y: sum(  # noqa: E731
+                            float(((x[k] - y[k]) ** 2).sum())
+                            for k in y) ** 0.5
+                        check(l2(gd, g32) <= TRAIN_AMP_FACTOR * l2(ga, g32),
+                              f"dist {tag} {b} {label} rank {r}: amp L2 "
+                              f"{l2(gd, g32)} vs one rank {l2(ga, g32)}")
+                    ratios[name] = max(ratios.get(name, 0.0), ratio)
+            worst[f"{key} {b} {label}"] = ratios
+            l0 = ranks[0][key]["grads"][b][False][0]
+            print(f"dist {tag} {b} {label}: loss {l0:.7f} vs one rank "
+                  f"{lc:.7f}; gradients within "
+                  f"bound (worst f32 {ratios['f32']:.3f}, amp "
+                  f"{ratios['amp bf16']:.3f}); launches {want} on each "
+                  f"rank; rank 0's n_real {ranks[0][key]['n_real']}"
+                  f"{flip_note}")
+    return worst
+
+
 def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
     """Phase 18: data-parallel SCM training (the flagship, bsz 128: 64
     pairs a rank) and edge-partitioned UNC training (the PubMed batch,
@@ -3166,14 +3298,18 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
                            collective_timeout=300)
         t_gloo = time.perf_counter() - t1
         t1 = time.perf_counter()
+        # the world of one also runs phase 19's halo work, which phase 19
+        # reads (one NCCL process for both phases)
         nccl = dist.launch(dist_rank, 1, backend="nccl", devices=[str(dev)],
                            init_file=os.path.join(tmp, "nccl"),
-                           args=(spec,), timeout=600, collective_timeout=300)
+                           args=(dict(spec, halo=True),), timeout=600,
+                           collective_timeout=300)
         t_nccl = time.perf_counter() - t1
     print(f"dist: gloo, two ranks on {dev}: {t_gloo:.1f} s wall (ranks "
           f"{', '.join(f'{r['seconds']:.1f}' for r in gloo)} s of work); "
           f"NCCL, a world of one: {t_nccl:.1f} s wall "
-          f"({nccl[0]['seconds']:.1f} s of work)")
+          f"({nccl[0]['seconds']:.1f} s of work, phase 19's halo work "
+          "included)")
 
     # DP against the one-rank step
     gmax = max(float(np.abs(g).max()) for g in ref_grads.values())
@@ -3222,81 +3358,9 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
     # EP against the one-rank step; the f32 gradients against the one-rank
     # step taken on the EP step's side of the leaky ReLU inputs whose sign
     # the two runs differ on (FLIP_TOL, MAX_FLIPS)
-    for b in EP_BACKBONES:
-        want = (DMPNN_STEP_LAUNCHES if b == "DMPNN"
-                else BACKBONE_STEP_LAUNCHES[b])
-        (lc, g32, _), (la, ga, _) = ref_ep[b][False], ref_ep[b][True]
-        for label, ranks in (("gloo 2 ranks", gloo), ("nccl 1 rank", nccl)):
-            ratios, flip_note, gc = {}, "", g32
-            if b in near:
-                force, total, far = {}, 0, 0.0
-                for name, (rows, cols, ref, scale) in near[b].items():
-                    # an edge row is held by one rank, a node row by all
-                    got = (sum(r["ep"]["near"][b][name] for r in ranks)
-                           if "emlp" in name
-                           else ranks[0]["ep"]["near"][b][name])
-                    flip = np.sign(got) != np.sign(ref)
-                    if flip.any():
-                        force[name] = (rows[flip], cols[flip],
-                                       np.sign(got[flip]))
-                        far = max(far, float(np.abs(got[flip]).max()) / scale)
-                    total += int(flip.sum())
-                check(total <= MAX_FLIPS and far <= FLIP_TOL,
-                      f"dist EP {b} {label}: {total} leaky ReLU inputs on "
-                      f"the other side of zero than in the one-rank step, "
-                      f"up to {far:.2e} of their scale from it (at most "
-                      f"{MAX_FLIPS} within {FLIP_TOL:g} are rounding)")
-                if force:
-                    gc = ep_loss_grads(copy.deepcopy(models[b]).to(dev), sub,
-                                       False, force=force)[1]
-                flip_note = (f"; {total} leaky ReLU inputs on the other side "
-                             f"of zero than in the one-rank step (up to "
-                             f"{far:.2e} of their scale from it), the "
-                             "one-rank f32 step taken again on the EP "
-                             "step's side of them")
-            gmax = max(float(np.abs(g).max()) for g in gc.values())
-            for r, res in enumerate(ranks):
-                for amp in (False, True):
-                    ld, gd, launches = res["ep"]["grads"][b][amp]
-                    name = "amp bf16" if amp else "f32"
-                    check(launches == want, f"dist EP {b} {label} rank {r} "
-                          f"{name}: launched {launches}, expected {want}")
-                    ref_l = la if amp else lc
-                    check(np.isfinite(ld) and abs(ld - ref_l) <= (
-                        1e-3 if amp else 1e-5) * abs(ref_l),
-                        f"dist EP {b} {label} rank {r} {name}: loss {ld} "
-                        f"vs one rank {ref_l}")
-                    ratio = 0.0
-                    for k, g in (g32 if amp else gc).items():
-                        scale = float(np.abs(g).max())
-                        if amp:
-                            err = float(np.abs(gd[k] - g).max())
-                            bound = (TRAIN_AMP_FACTOR * float(
-                                np.abs(ga[k] - g).max()) + 2.0 ** -8 * scale)
-                        else:
-                            err = float(np.abs(gd[k] - g).max())
-                            bound = (TRAIN_F32_REL * scale
-                                     + TRAIN_F32_GLOBAL * gmax)
-                        check(err <= bound, f"dist EP {b} {label} rank {r} "
-                              f"{name} {k}: err {err:.3e} exceeds "
-                              f"{bound:.3e}")
-                        ratio = max(ratio, err / bound)
-                    if amp:
-                        l2 = lambda x, y: sum(  # noqa: E731
-                            float(((x[k] - y[k]) ** 2).sum())
-                            for k in y) ** 0.5
-                        check(l2(gd, g32) <= TRAIN_AMP_FACTOR * l2(ga, g32),
-                              f"dist EP {b} {label} rank {r}: amp L2 "
-                              f"{l2(gd, g32)} vs one rank {l2(ga, g32)}")
-                    ratios[name] = max(ratios.get(name, 0.0), ratio)
-            worst[f"ep {b} {label}"] = ratios
-            l0 = ranks[0]["ep"]["grads"][b][False][0]
-            print(f"dist EP {b} {label}: loss {l0:.7f} vs one rank "
-                  f"{lc:.7f}; gradients within "
-                  f"bound (worst f32 {ratios['f32']:.3f}, amp "
-                  f"{ratios['amp bf16']:.3f}); launches {want} on each "
-                  f"rank; rank 0's n_real {ranks[0]['ep']['n_real']}"
-                  f"{flip_note}")
+    worst.update(hold_against_one_rank(
+        "EP", "ep", (("gloo 2 ranks", gloo), ("nccl 1 rank", nccl)),
+        ref_ep, near, models, sub, dev, split_nodes=False))
     print(f"dist EP timing, PubMed DMPNN f32: one rank "
           f"{ref_ep_time['event_ms']:.3f} ms events, "
           f"{ref_ep_time['device_ms']:.3f} ms device; two ranks sharing one "
@@ -3350,15 +3414,324 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
           f"{n_req} export requests in {t0_['seconds']:.1f} s over 2 gloo "
           f"ranks on one card; coverage {t0_['coverage']:.4f}; launches "
           f"{want} on each rank; states and embeddings equal")
-    launches = {"ep_step_per_rank": DMPNN_STEP_LAUNCHES,
-                "dp_step_per_rank": want_k3}
+    # the kernels line prints rank 0's counts of one step, as read
+    ep0 = gloo[0]["ep"]["grads"]["DMPNN"][False]
+    launches = {"ep_step_per_rank": ep0[2],
+                "dp_step_per_rank": gloo[0]["dp"]["launches"][0]}
     print(f"dist: phase 18 took {time.perf_counter() - t0:.1f} s")
-    return dict(worst=worst, kernels=kernels, launches=launches), paths
+    refs = dict(ref_ep=ref_ep, near=near, models=models, padded=padded,
+                one_rank_ms=ref_ep_time, nccl=nccl)
+    return dict(worst=worst, kernels=kernels, launches=launches,
+                refs=refs), paths
+
+# --- phase 19: owner-sharded (halo) UNC training ----------------------------
+
+def wall_median_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median host milliseconds of fn() followed by a synchronise: the
+    whole of a collective whose gloo path waits on the host."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def halo_rows(meta, world, n_real) -> tuple:
+    """(global real edge -> this rank's edge row, global node row -> this
+    rank's owned row), -1 where another rank holds it."""
+    es = meta["edge_perm"][world.rank]
+    shard_rows = np.full(n_real, -1)
+    shard_rows[es] = np.arange(len(es))
+    node_rows = np.where(meta["owner"] == world.rank, meta["rank"], -1)
+    return shard_rows, node_rows
+
+
+def dist_halo(world, spec, dev) -> dict:
+    """This rank's owned slice of the PubMed batch (partitioner
+    HALO_PARTITION) with its own plans: per backbone the loss, gradients
+    and launches, f32 and amp bf16; then DMPNN's owner-sharded train
+    step, CUDA-event ms (median of 5) and device ms (rank 0's
+    torch.profiler, 3 steps); the exchange of one layer ([n, B, H], f32
+    and bf16) and the loss's gather of [Vp, H], each as CUDA-event and
+    host ms (median of 10)."""
+    padded = spec["padded"]
+    env = halo_envelope(len(padded["nid"]), len(padded["senders"]),
+                        world.size)
+    shard, meta = halo_rank_shard(padded, world, env, HALO_PARTITION,
+                                  sender_plan=True)
+    sub = to_device(shard, dev)
+    shard_rows, node_rows = halo_rows(meta, world,
+                                      int(padded["edge_mask"].sum()))
+    out = {"n_real": shard["n_real"], "envelope": env, "grads": {},
+           "near": {}, "boundary": int(shard["send_mask"].sum())}
+    for name, model in spec["models"].items():
+        m = copy.deepcopy(model).to(dev)
+        record = {}
+        out["grads"][name] = {amp: ep_loss_grads(
+            m, sub, amp, world, record=None if amp else record, owner=True)
+            for amp in (False, True)}
+        if name in spec["near"]:
+            out["near"][name] = shard_values(record, spec["near"][name],
+                                             shard_rows, node_rows)
+    m = copy.deepcopy(spec["models"]["DMPNN"]).to(dev)
+    step = make_halo_train_step(m, make_unc_optimizer(m, LR, 100,
+                                                      GRAD_NORM), world)
+    out["event_ms"] = kernel_bench.cuda_median_ms(lambda: step(sub), 5,
+                                                  warmup=1)
+    out["device_ms"] = dist_profile(world, lambda: step(sub))
+    vp, _, b = env
+    for dtype in (torch.float32, torch.bfloat16):
+        send = torch.randn(world.size, b, N_HIDDEN, device=dev).to(dtype)
+        fn = lambda: halo_exchange(send, world)  # noqa: E731
+        out[f"exchange_{str(dtype)[6:]}"] = (
+            kernel_bench.cuda_median_ms(fn, 10, warmup=2),
+            wall_median_ms(fn, 10))
+    rows = torch.randn(vp, N_HIDDEN, device=dev)
+    fn = lambda: all_gather_rows(rows, world)  # noqa: E731
+    out["gather"] = (kernel_bench.cuda_median_ms(fn, 10, warmup=2),
+                     wall_median_ms(fn, 10))
+    return out
+
+
+def dist_halo_train_unc(world, spec, dev) -> dict:
+    """train_unc(ep_mode="halo", ep_partition="bfs", amp=True) as this
+    rank on the first BACKBONE_LINKS links (n_epochs=1: phase 18's
+    2 epochs of 10 steps, 3 export requests) and its
+    owner-sharded export, counted from zero: as dist_train_unc."""
+    model = copy.deepcopy(spec["model"]).to(dev)
+    epochs = []
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    emb, cov = train_unc(
+        model, spec["triplets"], PUBMED["num_nodes"], PUBMED["num_rels"],
+        lr=LR, negative_rate=NEG, graph_batch_size=GBS,
+        graph_split_size=SPLIT, sampler="randomwalk", sample_depth=DEPTH,
+        sample_width=WIDTH, n_epochs=1, grad_norm=GRAD_NORM,
+        seed=spec["seed"], amp=True, on_epoch=epochs.append,
+        log=lambda msg: None, world=world, ep_mode="halo",
+        ep_partition="bfs")
+    torch.cuda.synchronize()
+    return dict(launches=dict(sk.LAUNCHES), epochs=epochs, coverage=cov,
+                seconds=time.perf_counter() - t0,
+                emb_finite=bool(np.isfinite(emb).all()),
+                emb_sum=float(np.abs(emb).sum()), emb_shape=emb.shape,
+                state={k: v.cpu().numpy()
+                       for k, v in model.state_dict().items()})
+
+
+def halo_rank(world, spec) -> dict:
+    """One rank of phase 19: the owner-sharded gradients, step and
+    collectives, and (spec["runs"]) train_unc over the ranks."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = world.device
+    t0 = time.perf_counter()
+    out = {"halo": dist_halo(world, spec, dev)}
+    if spec.get("runs"):
+        out["train_unc"] = dist_halo_train_unc(world, spec["runs"], dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def halo_kernels(dev, padded, seed) -> dict:
+    """K1 and K2 at a halo rank's shapes (rank 0 of two, partitioner
+    HALO_PARTITION, the PubMed batch), f32, against their plain versions,
+    each timed beside one PyTorch call and its HBM bound: K1 summing the
+    rank's real edges into its Vp owned rows at H = 50 (the
+    aggregation); K1 summing W = 101 cotangent rows in sender order into
+    the Vt rows of the composite table (the sender gather's backward,
+    sk2_order / sk2_rowptr); K2 gathering the rank's receivers from the
+    [Vt, 2H + 1] composite table."""
+    world = dist.World(0, 2, dev, "gloo")
+    env = halo_envelope(len(padded["nid"]), len(padded["senders"]), 2)
+    shard, _ = halo_rank_shard(padded, world, env, HALO_PARTITION,
+                               sender_plan=True)
+    n, vp = shard["n_real"], len(shard["node_mask"])
+    vt = len(shard["skt_rowptr"]) - 1
+    e = len(shard["receivers"])
+    w = 2 * N_HIDDEN + 1
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    recv, send = t(shard["receivers"]), t(shard["senders"])
+    out = {}
+    with torch.inference_mode():
+        msg = t(rng.normal(size=(e, N_HIDDEN)).astype(np.float32))
+        row_ptr = t(shard["sk_rowptr"])
+        err = check_k1(msg, row_ptr, (0, 0))
+        res = dict(err=err, bound_ms=hbm_ms((n + vp) * N_HIDDEN * 4
+                                            + (vp + 1) * 4),
+                   **timed_pair(
+            f"float32: K1 halo rank n_real={n} of Ep={e} into Vp={vp} "
+            f"W={N_HIDDEN}", lambda: sk.segment_sum_sorted(msg, row_ptr),
+            lambda: sk.segment_sum_sorted_plain(msg, row_ptr),
+            f" (max abs err {err:.3e})"))
+        res["library_ms"], res["library_device_ms"] = library_times(
+            lambda: torch.zeros(vp, N_HIDDEN, device=dev).index_add_(
+                0, recv[:n], msg[:n]), "K1 halo Vp index_add_")
+        out["K1_vp"] = res
+        g = t(rng.normal(size=(e, w)).astype(np.float32))
+        order, row_ptr_s = t(shard["sk2_order"]), t(shard["sk2_rowptr"])
+        err = check_k1(g, row_ptr_s, (0, 0), rows=order)
+        # the rank's real cotangent rows and their sender order read once,
+        # the Vt rows written once
+        res = dict(err=err, bound_ms=hbm_ms((n + vt) * w * 4 + n * 8
+                                            + (vt + 1) * 4), **timed_pair(
+            f"float32: K1 halo rank sender backward n_real={n} into "
+            f"Vt={vt} W={w}",
+            lambda: sk.segment_sum_sorted(g, row_ptr_s, rows=order),
+            lambda: sk.segment_sum_sorted_plain(g, row_ptr_s, order),
+            f" (max abs err {err:.3e})"))
+        res["library_ms"], res["library_device_ms"] = library_times(
+            lambda: torch.zeros(vt, w, device=dev).index_add_(
+                0, send[:n], g[:n]), "K1 halo Vt index_add_")
+        out["K1_vt_send"] = res
+        table = t(rng.normal(size=(vt, w)).astype(np.float32))
+        err = check_k2(table, recv, n)
+        rows = int(recv[:n].unique().numel())
+        res = dict(err=err, bound_ms=hbm_ms((rows + e) * w * 4 + n * 8),
+                   **timed_pair(
+            f"float32: K2 halo rank n_real={n} of Ep={e} from the [{vt}, "
+            f"{w}] composite table ({rows} rows read)",
+            lambda: sk.gather_rows_sorted(table, recv, n),
+            lambda: sk.gather_rows_sorted_plain(table, recv, n)))
+        res["library_ms"], res["library_device_ms"] = library_times(
+            lambda: table.index_select(0, recv[:n]), "K2 halo index_select")
+        # the bound of the real rows alone, what index_select writes: K2
+        # also writes the Ep - n_real zero pad rows
+        res["bound_real_ms"] = hbm_ms((rows + n) * w * 4 + n * 8)
+        print(f"timing float32: K2_table halo rank: bound over the "
+              f"{n} real rows alone {res['bound_real_ms']:.4f} ms "
+              f"({e - n} of its {e} output rows are pads)")
+        out["K2_table"] = res
+    for name, r in out.items():
+        lib = r["library_device_ms"]
+        share = 100 * r["bound_ms"] / r["device_ms"]
+        print(f"timing float32: {name} halo rank: bound "
+              f"{r['bound_ms']:.4f} ms, {share:.1f} % of it by device "
+              f"time; library {r['library_ms']:.4f} ms "
+              "event, " + ("device not measured" if lib is None
+                           else f"{lib:.4f} ms device"))
+    out["shape"] = dict(vp=vp, vt=vt, ep=e, n_real=n)
+    return out
+
+
+def phase_halo(dev, seed, triplets, refs, kernels) -> tuple:
+    """Phase 19: owner-sharded (halo) UNC training of the PubMed batch
+    (phase 18's batch, models and one-rank references) as two ranks on
+    cuda:0 over gloo (Vp = 31,555, B = Vp, Vt = 94,666) and as a world
+    of one over NCCL (run in phase 18's NCCL process, refs["nccl"]):
+    every backbone's loss and gradients (f32, amp
+    bf16) against the one-rank step under phase 5's bounds and phase 18's
+    flip rule, K1's and K2's launches per rank; DMPNN's step and the
+    exchange timed; then train_unc (ep_partition bfs, amp) and the
+    north-star gate at its CI envelope over the two gloo ranks, launches
+    counted from zero. -> (results, paths). `kernels` are halo_kernels'
+    rows, measured early in the run."""
+    t0 = time.perf_counter()
+    padded, models = refs["padded"], refs["models"]
+    sub = to_device(sk.attach_csr_plan(padded, sender_plan=True), dev)
+    spec = dict(padded=padded, models=models, near=refs["near"])
+    runs = dict(model=models["DMPNN"], triplets=triplets[:BACKBONE_LINKS],
+                seed=seed + 7)
+    nccl = refs["nccl"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        gloo = dist.launch(halo_rank, 2, backend="gloo",
+                           devices=[str(dev)] * 2,
+                           init_file=os.path.join(tmp, "gloo"),
+                           args=(dict(spec, runs=runs),), timeout=600,
+                           collective_timeout=300)
+        t_gloo = time.perf_counter() - t1
+    env = gloo[0]["halo"]["envelope"]
+    print(f"halo: gloo, two ranks on {dev}: {t_gloo:.1f} s wall (the NCCL "
+          f"world of one ran in phase 18's process); per rank (Vp, Ep, B) = "
+          f"{tuple(env)}, Vt = {env[0] + 2 * env[2] + 1}, boundary rows "
+          f"{[r['halo']['boundary'] for r in gloo]}, real edges "
+          f"{[r['halo']['n_real'] for r in gloo]}")
+    worst = hold_against_one_rank(
+        "halo", "halo", (("gloo 2 ranks", gloo), ("nccl 1 rank", nccl)),
+        refs["ref_ep"], refs["near"], models, sub, dev, split_nodes=True)
+    one = refs["one_rank_ms"]
+    g0, n0 = gloo[0]["halo"], nccl[0]["halo"]
+    print(f"halo timing, PubMed DMPNN f32: one rank {one['event_ms']:.3f} "
+          f"ms events, {one['device_ms']:.3f} ms device; two ranks sharing "
+          f"one card over gloo (not a scale-out speed), rank 0 "
+          f"{g0['event_ms']:.3f} / {g0['device_ms']:.3f}; NCCL world of one "
+          f"{n0['event_ms']:.3f} / {n0['device_ms']:.3f}")
+    for label, r, size in (("gloo, two ranks on one card", g0, 2),
+                           ("NCCL world of one", n0, 1)):
+        print(f"halo exchange per layer, {label}: [{size}, "
+              f"{r['envelope'][2]}, {N_HIDDEN}] f32 "
+              f"{r['exchange_float32'][0]:.3f} ms events / "
+              f"{r['exchange_float32'][1]:.3f} ms host, bf16 "
+              f"{r['exchange_bfloat16'][0]:.3f} / "
+              f"{r['exchange_bfloat16'][1]:.3f}; the loss's gather of "
+              f"[{r['envelope'][0]}, {N_HIDDEN}] f32 {r['gather'][0]:.3f} / "
+              f"{r['gather'][1]:.3f}")
+
+    paths = {}
+    t0_, t1_ = (r["train_unc"] for r in gloo)
+    steps = sum(rec["steps"] for rec in t0_["epochs"])
+    n_req = -(-BACKBONE_LINKS // (4 * GBS))
+    want = {"segment_sum_sorted:fwd": K1_FWD * (steps + n_req),
+            "segment_sum_sorted:bwd": K1_BWD * steps,
+            "gather_rows_sorted:fwd": K2_FWD * (steps + n_req),
+            "gather_rows_sorted:bwd": K2_BWD * steps}
+    check(t0_["launches"] == want and t1_["launches"] == want,
+          f"halo train_unc: launched {t0_['launches']}, {t1_['launches']}; "
+          f"expected {want} on each rank")
+    check(t0_["emb_finite"] and t0_["emb_shape"] == (PUBMED["num_nodes"],
+                                                     N_HIDDEN)
+          and t0_["emb_sum"] == t1_["emb_sum"]
+          and all(np.array_equal(t0_["state"][k], t1_["state"][k])
+                  for k in t0_["state"]), "halo train_unc: the ranks differ")
+    paths["halo_train_unc_rank0"] = t0_["launches"]
+    for rec in t0_["epochs"]:
+        step_ms = [ms for ms in rec["step_ms"] if ms is not None] or [0.0]
+        print(f"halo train_unc epoch {rec['epoch']}: loss {rec['loss']:.6f}, "
+              f"{rec['steps']} amp steps, step "
+              f"{statistics.median(step_ms):.3f} ms median (CUDA events, "
+              f"rank 0 of two sharing one card), host sampling and bfs "
+              f"partition {statistics.median(rec['sample_ms']):.1f} ms "
+              "median")
+    print(f"halo train_unc: {len(t0_['epochs'])} epochs, {steps} steps, "
+          f"{n_req} export requests in {t0_['seconds']:.1f} s over 2 gloo "
+          f"ranks on one card; coverage {t0_['coverage']:.4f}; every "
+          f"node's row written ({t0_['emb_shape']}); launches {want} on "
+          "each rank; states and embeddings equal")
+
+    # the north-star gate at its CI envelope, its steps counted from zero
+    t1 = time.perf_counter()
+    ns = northstar.run(v=2000, e=40_000, steps=6, shards=2, batch=400,
+                       depth=2, width=6, amp=True, log=None, backend="gloo",
+                       devices=[str(dev)] * 2, timeout=600.0)
+    check(len(ns["losses"]) == 6 and all(np.isfinite(ns["losses"]))
+          and ns["loss_last_half_mean"] < ns["loss_first"]
+          and ns["loss_decreased"] and ns["checkpoint_verified"]
+          and ns["amp"] and 0.0 <= ns["sample_overlap_fraction"] <= 1.0,
+          f"north-star gate failed: {ns}")
+    want = {k: v * ns["steps"] for k, v in DMPNN_STEP_LAUNCHES.items()}
+    check(ns["launches"] == want, f"north-star gate: launched "
+          f"{ns['launches']}, expected {want} on rank 0")
+    paths["halo_northstar_rank0"] = ns["launches"]
+    print(f"halo north-star gate (v 2000, e 40000, 6 amp steps, two gloo "
+          f"ranks on one card): losses {ns['losses']}, checkpoint verified, "
+          f"step {ns['step_s_avg'] * 1e3:.1f} ms mean host, sampling "
+          f"overlap {ns['sample_overlap_fraction']}, "
+          f"{time.perf_counter() - t1:.1f} s wall")
+    print(f"halo: phase 19 took {time.perf_counter() - t0:.1f} s")
+    return dict(worst=worst, kernels=kernels,
+                launches_step=g0["grads"]["DMPNN"][False][2]), paths
 
 
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                  bench_launches, scm, scm_nets, scm_seq, scm_attn,
-                 scm_mem, scm_dist) -> dict:
+                 scm_mem, scm_dist, unc_halo) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -3370,13 +3743,14 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                 "library_ms", "library_device_ms", "bound_ms")
         return {k + suffix: t[k] for k in keys}
 
-    def k12(name, replaces, main, others, ep_rank_step):
+    def k12(name, replaces, main, others, ep_rank_step, halo_rank_step):
         fwd = train_launches[name + ":fwd"]
         bwd = train_launches[name + ":bwd"]
         out = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": fwd + bwd,
                "launches_fwd": fwd, "launches_bwd": bwd,
                "launches_ep_rank_step": ep_rank_step,
+               "launches_halo_rank_step": halo_rank_step,
                "max_abs_err": max(t["err"] for t in (main, *others.values())),
                **times(main), "bound_by": "bytes"}
         for suffix, t in others.items():
@@ -3468,6 +3842,8 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
     k3["max_abs_err"] = max(k3["max_abs_err"], dk["K3"]["err"])
     k3["launches_dp_rank_step"] = scm_dist["launches"]["dp_step_per_rank"]
     per_rank = scm_dist["launches"]["ep_step_per_rank"]
+    hk = unc_halo["kernels"]
+    halo_step = unc_halo["launches_step"]
 
     return {"kernels": [
         k12("segment_sum_sorted",
@@ -3475,15 +3851,20 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
             timed_k1[("float32", "recv", N_HIDDEN)],
             {f"_recv_w{w}": timed_k1[("float32", "recv", w)],
              f"_send_w{w}": timed_k1[("float32", "send", w)],
-             "_ep_shard": dk["K1"]},
+             "_ep_shard": dk["K1"], "_halo_vp": hk["K1_vp"],
+             "_halo_vt_send": hk["K1_vt_send"]},
             {k: v for k, v in per_rank.items()
+             if k.startswith("segment_sum_sorted")},
+            {k: v for k, v in halo_step.items()
              if k.startswith("segment_sum_sorted")}),
         k12("gather_rows_sorted",
             "dualmessagepassing_tpu/ops/segment_kernel.py:572",
             timed[("float32", "K2", w)],
             {f"_w{N_HIDDEN}": timed[("float32", "K2", N_HIDDEN)],
-             "_ep_shard": dk["K2"]},
+             "_ep_shard": dk["K2"], "_halo_table": hk["K2_table"]},
             {k: v for k, v in per_rank.items()
+             if k.startswith("gather_rows_sorted")},
+            {k: v for k, v in halo_step.items()
              if k.startswith("gather_rows_sorted")}),
         k3,
         k34("csr_segment_sum", src,
@@ -3589,8 +3970,11 @@ def main() -> int:
     print(f"bench: launches {bench_launches}; total "
           f"{time.perf_counter() - t_start:.1f} s after the device check")
     # phase 18's kernels at its shapes, while the process is young
-    dist_k = dist_kernels(dev, *dist_inputs(args.seed + 50, graph, triplets),
-                          args.seed + 54)
+    dist_data = dist_inputs(args.seed + 50, graph, triplets)
+    dist_k = dist_kernels(dev, *dist_data, args.seed + 54)
+    # phase 19's at a halo rank's shapes
+    halo_k = halo_kernels(dev, dist_data[1], args.seed + 55)
+    del dist_data
 
     # phases 7-10: the other backbones, attributed inputs, supervised
     # training and the evaluation, each training run counted from zero
@@ -3651,14 +4035,22 @@ def main() -> int:
     scm_dist, dist_paths = phase_dist(dev, args.seed + 50, graph, triplets,
                                       dist_k)
     paths.update(dist_paths)
-    print(json.dumps({"paths": paths}))
     print(f"phase 18 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
+    # phase 19: owner-sharded (halo) UNC training over torch.distributed
+    # and the north-star gate, the runs over the ranks counted from zero
+    unc_halo, halo_paths = phase_halo(dev, args.seed + 50, triplets,
+                                      scm_dist.pop("refs"), halo_k)
+    paths.update(halo_paths)
+    print(json.dumps({"paths": paths}))
+    print(f"phase 19 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches, scm,
                                   scm_nets, scm_seq, scm_attn, scm_mem,
-                                  scm_dist)))
+                                  scm_dist, unc_halo)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

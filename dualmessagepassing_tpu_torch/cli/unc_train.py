@@ -17,15 +17,19 @@ The options of the JAX package's TPU kernel compositions
 (--scatter_backend, --endpoint_gather, --pad_cols, --sender_windowed,
 --recv_bcast) pick among lowerings that compute the same numbers as the
 one composition the port has: any value is accepted and changes
-nothing, with one log line each; so is --ep_partition, which only the
-halo mode reads. --ep_devices N --ep_mode psum trains edge-partitioned
-over N spawned ranks (parallel/dist.launch), each of which builds the
-model from the seed and calls unc/driver.train_unc(world=...): NCCL with
-rank r on cuda:r, or gloo on the CPU with --device cpu; more ranks than
-visible CUDA devices are refused. Rank 0 logs, checkpoints and returns
-the embeddings, which this process writes. --ep_mode halo, the owner-sharded mode, is
-refused: it comes with slice E3 of the port. Supervised training stays on
-one device, as in the JAX CLI; there --ep_devices is a logged no-op.
+nothing, with one log line each. --ep_devices N trains over N spawned
+ranks (parallel/dist.launch), each of which builds the model from the
+seed and calls unc/driver.train_unc(world=...): NCCL with rank r on
+cuda:r, or gloo on the CPU with --device cpu; more ranks than visible
+CUDA devices are refused. --ep_mode psum splits the edges and
+replicates the node rows; --ep_mode halo owner-shards the node rows,
+partitioned by --ep_partition (degree, range or bfs), and exchanges the
+boundary rows each layer. Rank 0 logs, checkpoints and returns the
+embeddings, which this process writes. Without --ep_devices, --ep_mode
+halo and --ep_partition are logged no-ops (the JAX CLI ignores them
+there too); so is --ep_partition under --ep_mode psum. Supervised
+training stays on one device, as in the JAX CLI; there --ep_devices is
+a logged no-op.
 --device picks the torch device (default cuda); a machine without a GPU
 trains only when asked to with --device cpu. --gpu is accepted for the
 reference's command lines and not used.
@@ -43,7 +47,7 @@ from typing import List
 # value computes the same numbers here (a no-op, logged)
 _SAME_NUMBERS = {"scatter_backend": "xla", "endpoint_gather": "split",
                  "pad_cols": "auto", "sender_windowed": "auto",
-                 "recv_bcast": "auto", "ep_partition": "degree"}
+                 "recv_bcast": "auto"}
 
 
 def get_args(argv=None):
@@ -82,8 +86,9 @@ def get_args(argv=None):
                         "device)")
     p.add_argument("--ep_mode", type=str, default="psum",
                    choices=["psum", "halo"],
-                   help="psum: edges split, node state replicated; halo "
-                        "is not ported yet")
+                   help="node-state placement under --ep_devices: psum "
+                        "replicates the node rows (edges split); halo "
+                        "owner-shards them (boundary exchange)")
     p.add_argument("--scatter_backend", type=str, default="xla",
                    choices=["xla", "windowed"],
                    help="JAX package only; accepted and unused (the "
@@ -91,7 +96,9 @@ def get_args(argv=None):
                         "segment-sum)")
     p.add_argument("--ep_partition", type=str, default="degree",
                    choices=["degree", "range", "bfs"],
-                   help="the halo mode's partitioner: accepted and unused")
+                   help="the halo mode's node partitioner (--ep_mode "
+                        "halo with --ep_devices); bfs keeps neighbours "
+                        "together, fewer boundary rows")
     p.add_argument("--checkpoint_dir", type=str, default="",
                    help="save full training state (params/opt/BN/clocks/"
                         "sampling RNG) per epoch and resume from it when "
@@ -123,23 +130,28 @@ def check_supported(args) -> List[str]:
     if args.supervised == "True" and args.checkpoint_dir:
         raise ValueError("--checkpoint_dir applies to unsupervised "
                          "training only")
-    if args.ep_mode != "psum":
-        raise ValueError(
-            f"--ep_mode {args.ep_mode}: the owner-sharded halo mode comes "
-            "with slice E3 of the port (it runs --ep_mode psum)")
     if args.ep_devices < 0:
         raise ValueError(f"--ep_devices {args.ep_devices} < 0")
     notes = [f"--{name} {getattr(args, name)}: a lowering choice of the "
              "JAX package that computes the same numbers; the port runs "
              "its one composition" for name, default in _SAME_NUMBERS.items()
              if getattr(args, name) != default]
-    if args.ep_devices and args.supervised == "True":
+    sharded = bool(args.ep_devices) and args.supervised != "True"
+    if args.ep_devices and not sharded:
         notes.append(f"--ep_devices {args.ep_devices}: supervised training "
                      "runs on one device (as in the JAX CLI); it does not "
                      "apply")
-    elif args.ep_devices:
+    elif sharded:
         from ..parallel.dist import launch_plan
         launch_plan(args.ep_devices, args.device)     # refuses too many
+    if args.ep_mode == "halo" and not sharded:
+        notes.append("--ep_mode halo: places node rows over the ranks of "
+                     "--ep_devices; on one device it does not apply")
+    if args.ep_partition != "degree" and not (
+            sharded and args.ep_mode == "halo"):
+        notes.append(f"--ep_partition {args.ep_partition}: the halo mode's "
+                     "partitioner (--ep_mode halo with --ep_devices); it "
+                     "does not apply")
     return notes
 
 
@@ -181,6 +193,7 @@ def unsupervised(args, triplets, n, r, attrs, seed_nodes, world=None):
         model, triplets, n, r, negative_rate=args.negative_sample,
         seed_nodes=seed_nodes or None,
         checkpoint_dir=args.checkpoint_dir or None, world=world,
+        ep_mode=args.ep_mode, ep_partition=args.ep_partition,
         **train_kw(args))
     return embs if world is None or world.rank == 0 else None
 

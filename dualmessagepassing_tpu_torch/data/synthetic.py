@@ -1,11 +1,13 @@
 """Synthetic (pattern, graph) pairs with exact ground truth
 (dualmessagepassing_tpu/data/synthetic.py: random_multidigraph 22,
-generate_pair 34, generate_dataset 151, copied as numpy).
+generate_pair 34, generate_large_graph 100, generate_community_graph
+127, generate_dataset 151, copied as numpy).
 
 Erdős–Rényi-style random directed multigraphs; counts, subisomorphisms
-and node/edge weights come from data/subiso.py. The same seed gives the
-JAX package's arrays. The large and community graph generators
-(synthetic.py:100-150) are not ported.
+and node/edge weights come from data/subiso.py. The large power-law and
+community-structured triplet graphs feed the scale-out runs (the
+north-star gate, gates/northstar.py). The same seed gives the JAX
+package's arrays.
 """
 
 from __future__ import annotations
@@ -86,3 +88,49 @@ def generate_dataset(n_pairs: int, seed: int = 0, **kw) -> List[Dict]:
     rng = np.random.default_rng(seed)
     return [generate_pair(rng, pair_id=f"P{i}-G{i}", **kw)
             for i in range(n_pairs)]
+
+
+def generate_large_graph(num_nodes: int, num_edges: int, num_rels: int = 4,
+                         seed: int = 0, power_law: bool = True):
+    """Synthetic large-graph triplets -> (triplets int64 [E, 3] of (src,
+    rel, dst), num_nodes). power_law draws both endpoints from a
+    zipf(0.8)-weighted permutation of the node ids (heavy-tailed
+    degrees); otherwise uniformly. Self loops move their destination to
+    the next id. 24 bytes an edge of host memory."""
+    rng = np.random.default_rng(seed)
+    if power_law:
+        w = 1.0 / np.arange(1, num_nodes + 1) ** 0.8
+        w /= w.sum()
+        perm = rng.permutation(num_nodes)
+        src = perm[rng.choice(num_nodes, size=num_edges, p=w)]
+        dst = perm[rng.choice(num_nodes, size=num_edges, p=w)]
+    else:
+        src = rng.integers(0, num_nodes, num_edges)
+        dst = rng.integers(0, num_nodes, num_edges)
+    clash = src == dst
+    dst[clash] = (dst[clash] + 1) % num_nodes
+    rel = rng.integers(0, num_rels, num_edges)
+    return (np.stack([src, rel, dst], axis=1).astype(np.int64), num_nodes)
+
+
+def generate_community_graph(num_nodes: int, num_edges: int,
+                             num_communities: int = 8, p_intra: float = 0.95,
+                             num_rels: int = 4, seed: int = 0):
+    """Community-structured triplets: an edge's endpoints share a
+    community (a contiguous block of ids) with probability p_intra, the
+    locality an owner partitioner can find -> (triplets [E, 3],
+    num_nodes)."""
+    rng = np.random.default_rng(seed)
+    per = -(-num_nodes // num_communities)
+    comm = rng.integers(0, num_communities, num_edges)
+    src = comm * per + rng.integers(0, per, num_edges)
+    intra = rng.random(num_edges) < p_intra
+    dst_comm = np.where(intra, comm,
+                        rng.integers(0, num_communities, num_edges))
+    dst = dst_comm * per + rng.integers(0, per, num_edges)
+    src = np.minimum(src, num_nodes - 1)
+    dst = np.minimum(dst, num_nodes - 1)
+    clash = src == dst
+    dst[clash] = (dst[clash] + 1) % num_nodes
+    rel = rng.integers(0, num_rels, num_edges)
+    return (np.stack([src, rel, dst], axis=1).astype(np.int64), num_nodes)

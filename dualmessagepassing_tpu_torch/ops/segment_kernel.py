@@ -70,7 +70,7 @@ def reset_launch_counts() -> None:
     LAUNCHES.clear()
 
 
-def _row_pointer(keys: np.ndarray, v_max: int, what: str) -> np.ndarray:
+def row_pointer(keys: np.ndarray, v_max: int, what: str) -> np.ndarray:
     if len(keys) and ((np.diff(keys) < 0).any() or keys[0] < 0
                       or keys[-1] >= v_max):
         raise ValueError(f"{what} must be sorted (pad_subgraph order) "
@@ -109,14 +109,14 @@ def attach_csr_plan(padded: Dict[str, np.ndarray],
     if not edge_mask[:n_real].all():
         raise ValueError("edge_mask must mark a prefix (pad_subgraph order)")
     out = dict(padded)
-    out["sk_rowptr"] = _row_pointer(
+    out["sk_rowptr"] = row_pointer(
         np.asarray(padded["receivers"])[:n_real], v_max, "receivers")
     out["n_real"] = n_real
     if sender_plan:
         order = np.asarray(padded["send_order"])
         order = order[order < n_real]
         out["sk2_order"] = order
-        out["sk2_rowptr"] = _row_pointer(
+        out["sk2_rowptr"] = row_pointer(
             np.asarray(padded["senders"])[order], v_max, "senders")
     return out
 

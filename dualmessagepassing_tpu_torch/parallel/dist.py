@@ -22,6 +22,13 @@ per device, over a torch.distributed process group:
     (MaskedBatchNorm, the predict nets, the UNC layers and losses) holds
     `world`, and completes its batch statistics, lengths and
     aggregations over the ranks that hold the other rows.
+    split_rows(module, world, owner=True) is the counterpart of the JAX
+    UNC model's node_sharding="owner": the submodules with an
+    owner_rows attribute (the UNC layers and losses) also hold True,
+    and read their node rows as owned by this rank.
+  * halo_exchange and all_gather_rows are the two collectives of that
+    owner-sharded mode (jax.lax.all_to_all and jax.lax.all_gather in
+    the JAX package), each with its true adjoint as its backward.
   * all_reduce_grads sums each parameter's gradient over the ranks.
 
 The convention that makes every gradient exact: each rank computes the
@@ -102,24 +109,94 @@ def all_reduce_max(x: torch.Tensor, world: Optional[World]) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def split_rows(module: nn.Module, world: Optional[World]):
+def split_rows(module: nn.Module, world: Optional[World],
+               owner: bool = False):
     """Within it, every submodule of `module` that has a row_world
-    attribute holds `world`; the attributes are restored on exit. A
-    train step wraps its forward and backward in it, so that a
-    rematerialised forward sees it too. Without a world (all rows on
+    attribute holds `world`, and with owner=True every submodule that
+    has an owner_rows attribute holds True; the attributes are restored
+    on exit. A train step wraps its forward and backward in it, so that
+    a rematerialised forward sees it too. Without a world (all rows on
     this rank) it does nothing."""
     if world is None:
         yield
         return
-    mods = [m for m in module.modules() if hasattr(m, "row_world")]
-    old = [m.row_world for m in mods]
-    for m in mods:
-        m.row_world = world
+    sets = [(m, "row_world", world) for m in module.modules()
+            if hasattr(m, "row_world")]
+    if owner:
+        sets += [(m, "owner_rows", True) for m in module.modules()
+                 if hasattr(m, "owner_rows")]
+    old = [getattr(m, name) for m, name, _ in sets]
+    for m, name, value in sets:
+        setattr(m, name, value)
     try:
         yield
     finally:
-        for m, w in zip(mods, old):
-            m.row_world = w
+        for (m, name, _), value in zip(sets, old):
+            setattr(m, name, value)
+
+
+def _all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Block i of x ([size, ...]) to rank i; block i of the result from
+    rank i. all_to_all_single on every backend: gloo runs it on CPU and
+    on CUDA tensors, float32 and bfloat16 (and not the list form,
+    all_to_all)."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x)
+    return out
+
+
+class _HaloExchange(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, send, world):
+        return _all_to_all(send)
+
+    @staticmethod
+    def backward(ctx, g):
+        # a permutation of blocks: its adjoint is the same exchange
+        return _all_to_all(g), None
+
+
+def halo_exchange(send: torch.Tensor, world: World) -> torch.Tensor:
+    """send [size, B, H] -> recv [size, B, H], recv[o] = rank o's
+    send[this rank]: jax.lax.all_to_all(send, axis, split_axis=0,
+    concat_axis=0, tiled=False), the owner-sharded mode's exchange of
+    boundary rows. Rows travel in send's dtype (bf16 under amp). Its
+    backward exchanges the cotangent the same way, its adjoint."""
+    if send.shape[0] != world.size:
+        raise ValueError(f"halo_exchange: {send.shape[0]} blocks for "
+                         f"{world.size} ranks")
+    return _HaloExchange.apply(send, world)
+
+
+class _AllGatherRows(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, world):
+        ctx.world = world
+        x = x.contiguous()
+        out = x.new_empty((world.size * x.shape[0],) + x.shape[1:])
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # rank r's rows reach every rank's table: their cotangent is the
+        # sum over the ranks of the cotangent of slice r
+        g32 = g.to(torch.promote_types(g.dtype, torch.float32)).contiguous()
+        out = g32.new_empty((g.shape[0] // ctx.world.size,) + g.shape[1:])
+        dist.reduce_scatter_tensor(out, g32)
+        return out.to(g.dtype), None
+
+
+def all_gather_rows(x: torch.Tensor, world: World) -> torch.Tensor:
+    """x [N, ...] on each rank -> [size * N, ...], rank r's rows at
+    r * N: jax.lax.all_gather(x, axis, axis=0, tiled=True). Its backward
+    is its adjoint, a reduce-scatter: this rank's slice of the cotangent
+    summed over the ranks, in float32. gloo runs both collectives on CPU
+    and on CUDA tensors."""
+    return _AllGatherRows.apply(x, world)
 
 
 def all_reduce_grads(params: Iterable[torch.Tensor], world: World) -> None:

@@ -19,12 +19,14 @@ head instead: each batch joins the incident edges of label_batch_size
 sampled labeled nodes to its triplets before sampling, and the loss is
 node_fc's classification loss on the labeled rows.
 
-train_unc(world=...) trains edge-partitioned as one of the ranks of a
-process group (parallel/ep_unc.py, the JAX package's ep_mode "psum";
-cli/unc_train.py --ep_devices N spawns the ranks): every rank samples
-the same batches from the same seed and keeps its slice of the edges.
-The JAX package's halo mode (ep_mode "halo", halo_*) is not ported yet;
-its TPU-gate arguments (scatter_backend, pad_cols, recv_bcast,
+train_unc(world=...) trains as one of the ranks of a process group
+(cli/unc_train.py --ep_devices N spawns the ranks): every rank samples
+the same batches from the same seed and keeps its part. ep_mode "psum"
+splits the edges and replicates the node rows (parallel/ep_unc.py);
+ep_mode "halo" owner-shards the node rows, places every edge at its
+receiver's owner and exchanges boundary rows (parallel/halo_unc.py,
+partitioned by ep_partition inside the sampler threads). The JAX
+package's TPU-gate arguments (scatter_backend, pad_cols, recv_bcast,
 sender_windowed, endpoint_gather) have no counterpart: every choice among
 them computes the numbers of the one composition this package has.
 """
@@ -41,10 +43,13 @@ import numpy as np
 import torch
 
 from ..ops.segment_kernel import attach_csr_plan
-from ..parallel.dist import World, same_on_all_ranks
+from ..parallel.dist import World, all_gather_rows, same_on_all_ranks
 from ..parallel.dp import replicate
 from ..parallel.ep_unc import (attach_ep_csr_plans, make_ep_apply,
                                make_ep_train_step, pad_e_max, shard_sub)
+from ..parallel.halo_unc import (halo_envelope, halo_rank_shard,
+                                 make_halo_apply, make_halo_train_step,
+                                 unshard_halo_nodes)
 from ..train.checkpoint import (restore_unc_checkpoint, rng_from_state,
                                 save_unc_checkpoint)
 from .data import (
@@ -259,10 +264,22 @@ def export_start_table(model: UNCTrainModel) -> np.ndarray:
 
 
 def make_unc_embed_step(model: UNCTrainModel, amp: bool = False,
-                        world: Optional[World] = None) -> Callable:
+                        world: Optional[World] = None,
+                        halo: bool = False) -> Callable:
     """sub (tensors on the model's device) -> node rows h [V, H] float32,
     eval-mode forward under torch.inference_mode(); with `world` the sub
-    is this rank's shard (parallel/ep_unc.make_ep_apply)."""
+    is this rank's shard (parallel/ep_unc.make_ep_apply), and with
+    halo=True this rank's owned slice (parallel/halo_unc.
+    make_halo_apply): h is then every rank's rows gathered, [n * Vp, H],
+    rank r's at r * Vp."""
+    if world is not None and halo:
+        fwd = make_halo_apply(model, world, amp=amp)
+
+        def embed(sub):
+            h = fwd(sub)[0]
+            with torch.inference_mode():
+                return all_gather_rows(h, world)
+        return embed
     if world is not None:
         fwd = make_ep_apply(model, world, amp=amp)
         return lambda sub: fwd(sub)[0]
@@ -298,7 +315,8 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
                       e_max: Optional[int] = None,
                       on_request: Optional[Callable[[dict], None]] = None,
                       log: Callable[[str], None] = print,
-                      world: Optional[World] = None):
+                      world: Optional[World] = None,
+                      halo: Optional[tuple] = None):
     """Coverage-weighted moving-average export (driver.py:641-689) ->
     (node_emb [N, H] float32 numpy, coverage fraction).
 
@@ -310,14 +328,18 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
     forward ms (CUDA events; None off CUDA), real edges and rows, and
     the coverage so far. With `world` (edge-partitioned, driver.py:
     655-660) every rank samples the same requests and forwards its slice
-    of their edges; each rank returns the same table."""
+    of their edges; with `halo` as well, (the (Vp, Ep, B) envelope, the
+    partitioner), its owned slice of their rows (driver.py:645-655), the
+    rows mapped back with unshard_halo_nodes. Each rank returns the same
+    table."""
     device = model_device(model)
     v_max = graph.num_nodes if v_max is None else v_max
     e_max = min(v_max * sample_width, graph.num_edges) if e_max is None \
         else e_max
     bsz = graph_batch_size * 4
     s_max = bsz * (1 + negative_rate)
-    embed = make_unc_embed_step(model, amp=amp, world=world)
+    embed = make_unc_embed_step(model, amp=amp, world=world,
+                                halo=halo is not None)
     node_emb = export_start_table(model)
     seen = np.zeros(graph.num_nodes, bool)
     for i in range(math.ceil(len(triplets) / bsz)):
@@ -326,12 +348,14 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
         subp = sample_batch(
             graph, edges, sampler, sample_depth, sample_width,
             graph_split_size, negative_rate, v_max, e_max, s_max, rng)
-        mine = (attach_csr_plan(subp) if world is None
-                else attach_ep_csr_plans(shard_sub(subp, world)))
+        mine, meta = _rank_batch(subp, world, halo)
         sample_ms = (time.perf_counter() - t0) * 1e3
         sub = to_device(mine, device)
         h, forward_ms = _cuda_ms(device, lambda: embed(sub))
         h = h.cpu().numpy()
+        if meta is not None:
+            h = unshard_halo_nodes(meta, h.reshape(world.size, meta["vp"],
+                                                   -1))
         nm = subp["node_mask"]
         nid = subp["nid"][nm]
         sub_in_deg = np.bincount(subp["receivers"][subp["edge_mask"]],
@@ -350,6 +374,22 @@ def export_embeddings(model: UNCTrainModel, graph: WholeGraph,
     return node_emb, coverage
 
 
+def _rank_batch(padded, world: Optional[World], halo: Optional[tuple],
+                sender_plan: bool = False):
+    """A padded batch -> (this rank's planned part, the halo partition's
+    meta or None): the whole batch without a world, the rank's share of
+    its edges (ep_mode psum) or, with halo = ((Vp, Ep, B), partitioner),
+    its owned slice."""
+    if world is None:
+        return attach_csr_plan(padded, sender_plan=sender_plan), None
+    if halo is None:
+        return attach_ep_csr_plans(shard_sub(padded, world),
+                                   sender_plan=sender_plan), None
+    envelope, method = halo
+    return halo_rank_shard(padded, world, envelope, method,
+                           sender_plan=sender_plan)
+
+
 def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
               num_rels: int, *, lr: float = 1e-2, negative_rate: int = 5,
               graph_batch_size: int = 10000, graph_split_size: float = 0.5,
@@ -362,7 +402,8 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
               on_epoch: Optional[Callable[[dict], None]] = None,
               on_request: Optional[Callable[[dict], None]] = None,
               log: Callable[[str], None] = print,
-              world: Optional[World] = None):
+              world: Optional[World] = None, ep_mode: str = "psum",
+              ep_partition: str = "degree"):
     """Train `model` in place, then export -> (node_embeddings [N, h]
     float32 numpy, coverage fraction) (driver.py:273-689).
 
@@ -395,21 +436,27 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
     wall-clock ms. on_request is export_embeddings'.
 
     world (a parallel.dist.World) runs this call as one rank of a
-    process group (each rank calls train_unc, its model on world.device):
-    edge-partitioned training (parallel/ep_unc.py; driver.py:372-392,
-    473-510, 655-660). Rank 0's state is broadcast first; e_max is
-    rounded up to a multiple of the ranks (pad_e_max); every rank
-    samples the same batches (the first batch's receivers are compared
-    over the ranks) and keeps its slice of their edges with its own
-    K1/K2 plans. Rank 0 logs, calls on_epoch and on_request and writes
-    the checkpoint; every rank returns the embeddings."""
+    process group (each rank calls train_unc, its model on world.device;
+    driver.py:372-392, 473-510, 645-660). Rank 0's state is broadcast
+    first; e_max is rounded up to a multiple of the ranks (pad_e_max);
+    every rank samples the same batches (the first batch's receivers are
+    compared over the ranks) and keeps its part with its own K1/K2
+    plans: ep_mode "psum" its slice of the edges (parallel/ep_unc.py),
+    ep_mode "halo" its owned node rows and their in-edges
+    (parallel/halo_unc.py), partitioned by ep_partition ("degree",
+    "range" or "bfs") within halo_envelope(v_max, e_max, ranks), in
+    the sampler threads; the export
+    runs owner-sharded too. Rank 0 logs, calls on_epoch and on_request
+    and writes the checkpoint; every rank returns the embeddings.
+    Without a world ep_mode and ep_partition are not read."""
     lead = world is None or world.rank == 0
     if not lead:
         on_epoch = on_request = None
         log = _quiet
     device = model_device(model)
     rng = np.random.default_rng(seed)
-    # the same seed on every rank: dropout acts on replicated node rows
+    # the same seed on every rank: under ep_mode psum dropout acts on
+    # replicated node rows
     dropout_gen = torch.Generator(device=device).manual_seed(seed)
     graph = WholeGraph(num_nodes, num_rels, triplets)
     if seed_nodes:
@@ -427,8 +474,13 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
         v_max = num_nodes
     if e_max is None:
         e_max = min(v_max * sample_width, graph.num_edges)
+    halo = None
     if world is not None:
+        if ep_mode not in ("psum", "halo"):
+            raise ValueError(f"ep_mode {ep_mode!r}: psum or halo")
         e_max = pad_e_max(e_max, world.size)
+        if ep_mode == "halo":
+            halo = (halo_envelope(v_max, e_max, world.size), ep_partition)
     s_max = graph_batch_size * (1 + negative_rate)
 
     optimizer = make_unc_optimizer(model, lr, n_epochs * n_batches,
@@ -438,8 +490,10 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
                                    generator=dropout_gen)
     else:
         replicate(world, model.state_dict().values())
-        step = make_ep_train_step(model, optimizer, world, amp=amp,
-                                  generator=dropout_gen)
+        make_step = make_ep_train_step if halo is None \
+            else make_halo_train_step
+        step = make_step(model, optimizer, world, amp=amp,
+                         generator=dropout_gen)
 
     def sample(edges, brng):
         # the JAX package's train_unc samples sharded batches without
@@ -452,12 +506,8 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
 
     def sample_and_prepare(edges, brng):
         t0 = time.perf_counter()
-        padded = sample(edges, brng)
-        if world is None:
-            padded = attach_csr_plan(padded, sender_plan=True)
-        else:
-            padded = attach_ep_csr_plans(shard_sub(padded, world),
-                                         sender_plan=True)
+        padded = _rank_batch(sample(edges, brng), world, halo,
+                             sender_plan=True)[0]
         return padded, (time.perf_counter() - t0) * 1e3
 
     first = sample(train_edges[:graph_batch_size], rng)      # RNG parity
@@ -528,7 +578,7 @@ def train_unc(model: UNCTrainModel, triplets: np.ndarray, num_nodes: int,
         sample_depth=sample_depth, sample_width=sample_width,
         graph_split_size=graph_split_size, negative_rate=negative_rate,
         amp=False, v_max=v_max, e_max=e_max, on_request=on_request, log=log,
-        world=world)
+        world=world, halo=halo)
 
 
 def _quiet(msg: str) -> None:

@@ -53,6 +53,18 @@ Port notes:
     the regulariser) are looked up as one_hot @ table in float32
     (_onehot_rows), as the JAX package does: the backward is then a
     matmul instead of E atomics into 2R rows.
+  * Owner sharding (the JAX model's node_sharding="owner"; parallel/
+    halo_unc.py builds the rank's arrays, parallel/dist.split_rows(...,
+    owner=True) sets owner_rows): node rows are this rank's owned rows
+    [Vp], every edge lives on the rank that owns its receiver, and the
+    senders address the composite table [owned; halo; zero dump]
+    (_halo_table: one exchange of [n, B, H] a layer). The aggregation
+    is then complete on the rank, with no sum over the ranks; the
+    sender gathers run on the sender plan over that table's Vt rows
+    (sk2_*), DualGraphConv's receiver gather of its [Vt, 2H+1] table on
+    a receiver plan over Vt rows (skt_rowptr), the aggregation on one
+    over Vp (sk_rowptr). The DistMult score reads the all-gathered
+    [n * Vp, H] table by packed ids (UNCTrainModel._full_rows).
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ from ..models.layers import dropout as _dropout
 from ..ops.encoding import get_enc_len, multihot_table
 from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
                                   gather_rows_perm)
-from ..parallel.dist import all_reduce_sum
+from ..parallel.dist import all_gather_rows, all_reduce_sum, halo_exchange
 from ..utils.amp import cast_floats
 from ..utils.init import embedding_uniform, scaled, xavier_uniform
 
@@ -98,6 +110,28 @@ def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
     if clip:
         idx = idx.clamp(0, n - 1)
     return F.one_hot(idx, n).to(table.dtype) @ table
+
+
+def _halo_table(node_feat: torch.Tensor, sub: Sub, world) -> torch.Tensor:
+    """The owner-sharded sender table [Vp + n * B + 1, H]: this rank's
+    owned rows, then the boundary rows the other ranks own (B from each
+    owner o at Vp + o * B, fetched with one halo_exchange), then a zero
+    dump row for the pad edges (unc/model.py:384-403). The send buffer
+    [n, B, H] holds, at the real slots of send_mask, the owned rows
+    send_idx names there, and zeros elsewhere: the rows are gathered at
+    the real slots only (send_pos, send_rows: parallel/halo_unc.
+    attach_halo_csr_plans), so the backward sums into each owned row
+    only the slots that send it. (JAX gathers every slot and masks; its
+    pad slots all name row 0, and a gather's backward over that many
+    duplicates of one row made a rank's PubMed step 87-124 device ms
+    instead of 27-28 on an H100, chip_smoke.py phase 19.)"""
+    n, b = sub["send_idx"].shape
+    h = node_feat.shape[-1]
+    rows = node_feat.index_select(0, sub["send_rows"])
+    send = node_feat.new_zeros(n * b, h).index_copy(0, sub["send_pos"], rows)
+    recv = halo_exchange(send.view(n, b, h), world)
+    return torch.cat([node_feat, recv.reshape(n * b, h),
+                      node_feat.new_zeros(1, h)])
 
 
 def _out_degrees(sub: Sub, world=None) -> torch.Tensor:
@@ -160,6 +194,7 @@ class DualGraphConv(nn.Module):
         self.nmlp = UpdateMLP2(hidden_dim, hidden_dim, batch_norm, generator)
         self.emlp = UpdateMLP2(hidden_dim, hidden_dim, batch_norm, generator)
         self.row_world = None        # the ranks holding the other edges
+        self.owner_rows = False      # node rows owner-sharded over them
 
     def forward(self, sub: Sub, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, edge_norm=None,
@@ -172,18 +207,31 @@ class DualGraphConv(nn.Module):
         receivers = sub["receivers"]
         e_mask = sub["edge_mask"]
         rev = sub["rev_flag"][:, None]
+        owner = self.owner_rows
+        if owner and "out_deg" not in sub:
+            # a sum over this rank's edges would miss the out-edges of its
+            # rows that live on other ranks (unc/model.py:503-510)
+            raise ValueError("owner-sharded subs must carry host-precomputed "
+                             "'out_deg' (parallel/halo_unc.build_halo_sub)")
         out_deg = (sub["out_deg"] if "out_deg" in sub
                    else _out_degrees(sub, self.row_world))
+        table = (_halo_table(node_feat, sub, self.row_world) if owner
+                 else node_feat)
 
-        # ONE [V, 2H+1] endpoint table: src/dst products plus the
+        # ONE [V, 2H+1] endpoint table ([Vt, 2H+1] owner-sharded, the
+        # halo and dump rows' degree zero): src/dst products plus the
         # log-degree column, cast to the compute dtype BEFORE the concat
         # (unc/model.py:525 order, for bf16 parity)
         d_col = torch.log2(1.0 + out_deg).to(dt)[:, None]
-        cols = torch.cat([node_feat @ w_src, node_feat @ w_dst, d_col], dim=1)
+        if owner:
+            d_col = torch.cat([d_col, d_col.new_zeros(
+                table.shape[0] - d_col.shape[0], 1)])
+        cols = torch.cat([table @ w_src, table @ w_dst, d_col], dim=1)
         at_send = gather_rows_perm(cols, senders, sub.get("sk2_order"),
                                    sub.get("sk2_rowptr"))        # bwd K1
         at_recv = GatherRowsSorted.apply(                        # K2, bwd K1
-            cols, receivers, sub["n_real"], sub["sk_rowptr"])
+            cols, receivers, sub["n_real"],
+            sub["skt_rowptr"] if owner else sub["sk_rowptr"])
         edge_msg = torch.where(
             rev,
             at_send[:, h: 2 * h] - at_recv[:, :h],
@@ -197,7 +245,8 @@ class DualGraphConv(nn.Module):
         node_msg = torch.where(e_mask[:, None], node_msg, 0.0)
         agg = SegmentSumSorted.apply(                            # K1, bwd K2
             node_msg, sub["sk_rowptr"], receivers, sub["n_real"])
-        agg = all_reduce_sum(agg, self.row_world)       # unc/model.py:637
+        if not owner:                                   # unc/model.py:637
+            agg = all_reduce_sum(agg, self.row_world)
 
         n_out = node_feat @ self.nloop_weight.to(dt) + agg
         if self.use_bias:
@@ -290,12 +339,14 @@ class UNCDMPNN(_Backbone):
                 dropout=dropout, generator=generator)
             for i in range(num_hidden_layers)])
         self.row_world = None
+        self.owner_rows = False
 
     def forward(self, sub: Sub, train: bool = False,
                 dtype: torch.dtype = torch.float32, generator=None):
         h, z = self.input_embeddings(sub, dtype)
         # the (layer-invariant) global out-degree, hoisted out of the layers
-        if "out_deg" not in sub:
+        # (owner-sharded, the host's; DualGraphConv refuses a sub without)
+        if "out_deg" not in sub and not self.owner_rows:
             sub = dict(sub, out_deg=_out_degrees(sub, self.row_world))
         norm = sub.get("edge_norm")
         for layer in self.layers:
@@ -347,12 +398,15 @@ class CompGraphConv(nn.Module):
         if use_bias:
             self.bias = _zeros(hidden_dim)
         self.row_world = None
+        self.owner_rows = False
 
     def forward(self, sub: Sub, node_feat: torch.Tensor,
                 edge_feat: torch.Tensor, edge_norm=None, train: bool = False,
                 generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = node_feat.dtype
-        at_send = gather_rows_perm(node_feat, sub["senders"],    # bwd K1
+        table = (_halo_table(node_feat, sub, self.row_world)
+                 if self.owner_rows else node_feat)
+        at_send = gather_rows_perm(table, sub["senders"],        # bwd K1
                                    sub.get("sk2_order"), sub.get("sk2_rowptr"))
         comp = comp_func(at_send, edge_feat, self.comp_opt)
         msg = torch.where(sub["rev_flag"][:, None],
@@ -363,7 +417,8 @@ class CompGraphConv(nn.Module):
         msg = torch.where(sub["edge_mask"][:, None], msg, 0.0)
         agg = SegmentSumSorted.apply(                            # K1, bwd K2
             msg, sub["sk_rowptr"], sub["receivers"], sub["n_real"])
-        agg = all_reduce_sum(agg, self.row_world)       # unc/model.py:782
+        if not self.owner_rows:                         # unc/model.py:782
+            agg = all_reduce_sum(agg, self.row_world)
         if self.self_loop:
             loop = comp_func(node_feat, self.loop_rel.to(dt), self.comp_opt)
             out = (agg + loop @ self.loop_weight.to(dt)) * 0.3333333
@@ -412,7 +467,9 @@ def _flat_relation_agg(sub: Sub, src: torch.Tensor,
     partial @ W_r into a carry held in src's dtype (bf16 under amp, as
     the JAX package's). 2R K1 launches forward, 2R K2 backward. With
     `world` the carry holds this rank's edges, and one sum over the
-    ranks after the loop completes it (unc/model.py:826-827)."""
+    ranks after the loop completes it (unc/model.py:826-827); owner-
+    sharded callers pass no world, as their edges complete their rows
+    on the rank (local_complete)."""
     carry = torch.zeros(sub["node_mask"].shape[0], weights.shape[2],
                         dtype=src.dtype, device=src.device)
     valid = sub["edge_mask"]
@@ -452,16 +509,19 @@ class RelGraphConvFlat(nn.Module):
         self.out_layer = (Dense(hidden_dim, hidden_dim, activation="relu",
                                 generator=generator) if iso_layer else None)
         self.row_world = None
+        self.owner_rows = False
 
     def forward(self, sub: Sub, node_feat: torch.Tensor, edge_norm=None,
                 train: bool = False, generator=None) -> torch.Tensor:
         dt = node_feat.dtype
-        src = gather_rows_perm(node_feat, sub["senders"],        # bwd K1
+        table = (_halo_table(node_feat, sub, self.row_world)
+                 if self.owner_rows else node_feat)
+        src = gather_rows_perm(table, sub["senders"],            # bwd K1
                                sub.get("sk2_order"), sub.get("sk2_rowptr"))
         if self.use_norm and edge_norm is not None:
             src = src * edge_norm.to(dt)
         out = _flat_relation_agg(sub, src, self.weight.to(dt),
-                                 self.row_world)
+                                 None if self.owner_rows else self.row_world)
         if self.self_loop:
             out = out + node_feat @ self.loop_weight.to(dt)
         if self.use_bias:
@@ -548,15 +608,33 @@ class UNCTrainModel(nn.Module):
         # stream, and the JAX package's lazy init creates none for them
         self.edge_fc = (Dense(h_dim, h_dim, generator=generator)
                         if backbone in ("DMPNN", "CompGCN") else None)
-        # the ranks holding the other edges (parallel/dist.split_rows)
+        # the ranks holding the other edges, and whether they own the
+        # node rows (parallel/dist.split_rows)
         self.row_world = None
+        self.owner_rows = False
 
     def forward(self, sub: Sub, train: bool = False,
                 dtype: torch.dtype = torch.float32, generator=None):
         """-> the backbone's output tuple in `dtype` (DMPNN (h, z, r_bar),
         r_bar float32; CompGCN (h, z); R-GCN/R-GIN (h,)). `generator`
         draws the dropout masks of a train-mode forward."""
+        if self.owner_rows and self.node_fc is not None:
+            # the supervised loss would index the all-gathered table by
+            # matched_index, which nothing remaps to packed ids (only the
+            # samples are: build_halo_sub; unc/model.py:1051-1059)
+            raise NotImplementedError(
+                "a supervised head under owner sharding needs "
+                "matched_index remapped to packed ids; train supervised "
+                "runs on one device or edge-partitioned (ep_mode psum)")
         return self.model(sub, train=train, dtype=dtype, generator=generator)
+
+    def _full_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Owner-sharded: every rank's [Vp, ...] rows gathered into the
+        [n * Vp, ...] table that packed ids (owner * Vp + rank) address
+        (unc/model.py:1100-1106); x itself otherwise."""
+        if self.owner_rows:
+            return all_gather_rows(x, self.row_world)
+        return x
 
     def calc_score(self, node_emb: torch.Tensor,
                    triplets: torch.Tensor) -> torch.Tensor:
@@ -574,7 +652,8 @@ class UNCTrainModel(nn.Module):
         (edge_mask), 2 per-relation means (none). Each mean is a sum over
         a count; with row_world both are summed over the ranks in one
         all-reduce (unc/model.py:1124-1145), which leaves the means of
-        the rows every rank holds alike as they are."""
+        the rows every rank holds alike as they are, and completes those
+        of the rows the ranks split (edges; owner-sharded node rows)."""
         reg = (self.w_relation ** 2).mean()   # replicated: no sum over ranks
         if not isinstance(embedding, (tuple, list)):
             embedding = (embedding,)
@@ -609,7 +688,7 @@ class UNCTrainModel(nn.Module):
                           ) -> torch.Tensor:
         """Masked mean sigmoid BCE of the DistMult scores plus reg_param
         times the regulariser (model.py:1149-1156)."""
-        score = self.calc_score(embedding[0], samples)
+        score = self.calc_score(self._full_rows(embedding[0]), samples)
         bce = optax_sigmoid_bce(score, labels)
         cnt = sample_mask.sum().clamp(min=1)
         predict_loss = torch.where(sample_mask, bce, 0.0).sum() / cnt

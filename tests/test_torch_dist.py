@@ -1,13 +1,16 @@
 """The port's process groups (dualmessagepassing_tpu_torch/parallel/) on
-the CPU over gloo, and the rank functions that tests/test_torch_dp.py and
-tests/test_torch_ep_unc.py launch.
+the CPU over gloo, and the rank functions that tests/test_torch_dp.py,
+tests/test_torch_ep_unc.py and tests/test_torch_halo_unc.py launch.
 
 This file imports no JAX: the ranks are spawned processes that import it
 by name, and the machine with the card has no JAX. The JAX side of those
 comparisons runs in the pytest process only.
 
 Tolerances here: the sums over two ranks against one process's sum,
-1e-6 of each tensor's largest magnitude (float32 in another order).
+1e-6 of each tensor's largest magnitude (float32 in another order); the
+owner-sharded collectives over three ranks against one process's
+indexing, the loss rtol 1e-6 and each gradient 1e-6 of its largest
+magnitude.
 """
 
 import os
@@ -22,6 +25,7 @@ from dualmessagepassing_tpu_torch.ops.segment_kernel import attach_csr_plan
 from dualmessagepassing_tpu_torch.parallel import dist as pd
 from dualmessagepassing_tpu_torch.parallel import dp
 from dualmessagepassing_tpu_torch.parallel import ep_unc
+from dualmessagepassing_tpu_torch.parallel import halo_unc
 from dualmessagepassing_tpu_torch.train import checkpoint as ck
 from dualmessagepassing_tpu_torch.train import scm_driver as sd
 from dualmessagepassing_tpu_torch.unc import driver as ud
@@ -195,6 +199,60 @@ def unc_ep_rank(world, specs, train):
 
 
 # -----------------------------------------------------------------------------
+# UNC owner sharding (tests/test_torch_halo_unc.py)
+# -----------------------------------------------------------------------------
+
+def halo_shard(padded, world, spec, sender_plan=True):
+    shard, _ = halo_unc.halo_rank_shard(padded, world, spec["envelope"],
+                                        spec["method"],
+                                        sender_plan=sender_plan)
+    return ud.to_device(shard, "cpu")
+
+
+def unc_halo_rank(world, specs, train):
+    """As unc_ep_rank, owner-sharded: per backbone of `specs` (its
+    envelope and partitioner) the halo eval forward (this rank's node and
+    edge rows, the per-relation means), the full loss and every gradient
+    of a train-mode forward, and two clipped Adam steps with the BN-fed
+    biases pinned; then train_unc(ep_mode="halo", ep_partition="bfs") as
+    this rank on the HIN `train` gives."""
+    t, n, r = train
+    model = um.UNCTrainModel(n, r, 8, num_hidden_layers=1, reg_param=0.01,
+                             generator=torch.Generator().manual_seed(0))
+    embs, coverage = ud.train_unc(model, t, n, r, graph_batch_size=40,
+                                  n_epochs=1, sample_depth=2, sample_width=4,
+                                  log=print, world=world, ep_mode="halo",
+                                  ep_partition="bfs")
+    out = {"train_unc": dict(embs=embs, coverage=coverage,
+                             state=_numpy(model.state_dict()))}
+    for name, spec in specs.items():
+        m = unc_model(spec)
+        sub = halo_shard(spec["batches"][0], world, spec)
+        res = {"fwd": [t.numpy().copy() for t in
+                       halo_unc.make_halo_apply(m, world)(sub)]}
+        with pd.split_rows(m, world, owner=True):
+            o = um.apply_unc_forward(m, sub, train=True)
+            loss = m.unsupervised_loss(
+                o, sub["edge_type"], sub["edge_mask"], sub["samples"],
+                sub["labels"], sub["sample_mask"], sub["node_mask"])
+            (loss / world.size).backward()
+        pd.all_reduce_grads(m.parameters(), world)
+        res["loss"] = loss.item()
+        res["grads"] = _numpy({k: p.grad for k, p in m.named_parameters()})
+
+        m = unc_model(spec)
+        opt = ud.make_unc_optimizer(m, spec["lr"], spec["total_steps"], 1.0)
+        step = halo_unc.make_halo_train_step(m, opt, world)
+        res["losses"] = []
+        for b, pins in zip(spec["batches"], spec["pins"]):
+            res["losses"].append(step(halo_shard(b, world, spec)).item())
+            pin(m, pins)
+        res["state"] = _numpy(m.state_dict())
+        out[name] = res
+    return out
+
+
+# -----------------------------------------------------------------------------
 # tests of the process groups themselves
 # -----------------------------------------------------------------------------
 
@@ -220,6 +278,51 @@ def toy_rank(world, w0):
     (loss / world.size).backward()
     pd.all_reduce_grads([w], world)
     return loss.item(), w.grad.numpy().copy()
+
+
+def _halo_toy_data(size=3, vp=4, h=3, b=2):
+    """Rows [size, vp, h], an exchange plan send_idx / send_mask
+    [owner, destination, b], gathered-table ids [size, 5] and the toy
+    loss's weights, from a seed."""
+    rng = np.random.default_rng(5)
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa
+    mask = rng.random((size, size, b)) < 0.7
+    mask[np.arange(size), np.arange(size)] = False      # none to itself
+    return dict(x=f32(size, vp, h), w=f32(h, h),
+                send_idx=rng.integers(0, vp, (size, size, b)),
+                send_mask=mask, gidx=rng.integers(0, size * vp, (size, 5)),
+                c=f32(size, vp + size * b + 1, h), d=f32(size, 5, h))
+
+
+def _halo_toy_part(s, x_s, recv, full, w, data):
+    """Rank s's part of the toy loss: a tanh of its sender table
+    [owned; halo; zero] times weights, and squares of gathered rows."""
+    size, _, b = data["send_idx"].shape
+    h = x_s.shape[-1]
+    table = torch.cat([x_s, recv.reshape(size * b, h), x_s.new_zeros(1, h)])
+    c, d = (torch.from_numpy(data[k][s]) for k in ("c", "d"))
+    return ((torch.tanh(table @ w) * c).sum()
+            + (full[torch.from_numpy(data["gidx"][s])] ** 2 * d).sum())
+
+
+def halo_toy_rank(world, data):
+    """The toy loss over the ranks: rank s holds rows x[s], exchanges its
+    boundary rows with halo_exchange and gathers every rank's rows (times
+    1.5) with all_gather_rows -> (loss, d loss / d x[s], d loss / d w
+    summed over the ranks)."""
+    s = world.rank
+    x = torch.nn.Parameter(torch.from_numpy(data["x"][s].copy()))
+    w = torch.nn.Parameter(torch.from_numpy(data["w"].copy()))
+    idx = torch.from_numpy(data["send_idx"][s])
+    mask = torch.from_numpy(data["send_mask"][s])
+    send = torch.where(mask[..., None], x[idx], 0.0)
+    recv = pd.halo_exchange(send, world)
+    full = pd.all_gather_rows(x * 1.5, world)
+    loss = pd.all_reduce_sum(_halo_toy_part(s, x, recv, full, w, data),
+                             world)
+    (loss / world.size).backward()
+    pd.all_reduce_grads([w], world)
+    return loss.item(), x.grad.numpy().copy(), w.grad.numpy().copy()
 
 
 def hang_rank(world, seconds):
@@ -248,6 +351,38 @@ def test_sum_over_ranks_has_the_true_adjoint(tmp_path):
         np.testing.assert_allclose(grad, w.grad.numpy(), rtol=0,
                                    atol=1e-6 * float(w.grad.abs().max()))
     np.testing.assert_array_equal(got[0][1], got[1][1])
+
+
+def test_halo_collectives_have_their_true_adjoints(tmp_path):
+    """Three gloo ranks (two would hide a routing error: every block
+    would go to "the other" rank): the exchange delivers rank o's
+    send[s] to rank s as its block o, the gathered table is every rank's
+    rows in rank order, and the backwards of both (the same exchange of
+    the cotangent; its reduce-scatter) give one process's gradients of
+    the same loss, computed by plain indexing."""
+    data = _halo_toy_data()
+    size = data["x"].shape[0]
+    x = torch.nn.Parameter(torch.from_numpy(data["x"].copy()))
+    w = torch.nn.Parameter(torch.from_numpy(data["w"].copy()))
+    idx, mask = (torch.from_numpy(data[k]) for k in ("send_idx",
+                                                      "send_mask"))
+    full = (x * 1.5).reshape(-1, x.shape[-1])
+    want = 0.0
+    for s in range(size):
+        # rank s receives from each owner o the rows o sends it
+        recv = torch.stack([torch.where(mask[o, s][:, None],
+                                        x[o][idx[o, s]], 0.0)
+                            for o in range(size)])
+        want = want + _halo_toy_part(s, x[s], recv, full, w, data)
+    want.backward()
+    got = run_ranks(halo_toy_rank, tmp_path, data, size=size)
+    gx = x.grad.numpy()
+    for s, (loss, gxs, gw) in enumerate(got):
+        np.testing.assert_allclose(loss, want.item(), rtol=1e-6)
+        np.testing.assert_allclose(gxs, gx[s], rtol=0,
+                                   atol=1e-6 * float(np.abs(gx).max()))
+        np.testing.assert_allclose(gw, w.grad.numpy(), rtol=0,
+                                   atol=1e-6 * float(w.grad.abs().max()))
 
 
 @pytest.mark.parametrize("fn, args, error, timeout", [

@@ -40,7 +40,9 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     # the attention predict nets
     "models.pred_attn",
     # scale-out over torch.distributed
-    "parallel", "parallel.dist", "parallel.dp", "parallel.ep_unc")]
+    "parallel", "parallel.dist", "parallel.dp", "parallel.ep_unc",
+    # owner-sharded (halo) training and the north-star gate
+    "parallel.halo_unc", "gates.northstar")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -573,17 +573,38 @@ def test_cli_parses_every_reference_command_line():
     (["--supervised", "True", "--attributed", "True"], NotImplementedError),
     (["--model", "RGCN", "--supervised", "True", "--attributed", "True"],
      NotImplementedError),
-    # the owner-sharded halo mode is slice E3's; edge partitioning (psum)
-    # is ported, but not over more ranks than visible cards (one here)
-    (["--ep_mode", "halo"], ValueError),
+    # edge partitioning (psum) and the owner-sharded halo mode are
+    # ported, but not over more ranks than visible cards (one here)
+    (["--ep_mode", "halo", "--ep_devices", "2"], ValueError),
     (["--ep_devices", "2"], ValueError),
-    (["--ep_devices", "1", "--ep_partition", "bfs", "--ep_mode", "halo"],
+    (["--ep_devices", "3", "--ep_partition", "bfs", "--ep_mode", "halo"],
      ValueError),
 ])
 def test_cli_refuses_what_has_no_counterpart(extra, error, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(error):
         tcli.check_supported(tcli.get_args(["--link", "x"] + extra))
+
+
+@pytest.mark.parametrize("extra, note", [
+    # without --ep_devices the halo mode and its partitioner are logged
+    # no-ops, as the JAX CLI ignores them
+    (["--ep_mode", "halo"], "--ep_mode halo: "),
+    (["--ep_partition", "bfs"], "--ep_partition bfs: "),
+    (["--ep_partition", "range", "--ep_devices", "1"],
+     "--ep_partition range: "),
+    # over the visible cards the halo mode trains, its partitioner read
+    (["--ep_devices", "1", "--ep_partition", "bfs", "--ep_mode", "halo"],
+     None),
+])
+def test_cli_accepts_the_halo_mode(extra, note, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    notes = tcli.check_supported(tcli.get_args(["--link", "x"] + extra))
+    if note is None:
+        assert notes == []
+    else:
+        assert len(notes) == 1 and notes[0].startswith(note)
+        assert "does not apply" in notes[0]
 
 
 def _link_file(tmp_path, seed=2, n=40, e=160):
@@ -620,27 +641,15 @@ def test_cli_runs_the_jax_clis_measured_best_command_line(tmp_path, capsys):
                        ).all()
 
 
-def test_cli_still_refuses_sharded_training(tmp_path, capfd):
-    """The owner-sharded halo mode is refused, naming slice E3;
-    --ep_devices 2 --ep_mode psum --device cpu trains edge-partitioned
-    over two spawned gloo ranks end to end (train_unc(world=...)) and writes
-    every node's embedding; under supervised training --ep_devices is a
-    logged no-op. (Until slice E2 every --ep_devices > 0 was refused.)"""
-    with pytest.raises(ValueError, match="E3"):
-        tcli.check_supported(tcli.get_args(
-            ["--link", "x", "--ep_devices", "2", "--ep_mode", "halo",
-             "--scatter_backend", "windowed"]))
-    assert tcli.check_supported(tcli.get_args(["--link", "x"])) == []
-    notes = tcli.check_supported(tcli.get_args(
-        ["--link", "x", "--ep_devices", "2", "--supervised", "True",
-         "--device", "cpu"]))
-    assert len(notes) == 1 and "does not apply" in notes[0]
+def _sharded_cli_run(tmp_path, capfd, extra):
+    """The tiny HIN through --ep_devices 2 --device cpu and `extra`: two
+    spawned gloo ranks end to end; every node's embedding written."""
     link, n = _link_file(tmp_path)
     out = tmp_path / "emb.dat"
     argv = ["--link", str(link), "--output", str(out), "--n_hidden", "8",
             "--graph_batch_size", "40", "--n_epochs", "1",
             "--sample_depth", "2", "--sample_width", "4",
-            "--ep_devices", "2", "--ep_mode", "psum", "--device", "cpu"]
+            "--ep_devices", "2", "--device", "cpu"] + extra
     assert tcli.check_supported(tcli.get_args(argv)) == []
     tcli.main(argv)
     lines = out.read_text().splitlines()
@@ -650,6 +659,35 @@ def test_cli_still_refuses_sharded_training(tmp_path, capfd):
     logged = capfd.readouterr().out
     assert "Epoch 00000 | Loss" in logged
     assert "100.0% node embeddings are saved." in logged
+
+
+def test_cli_still_refuses_sharded_training(tmp_path, capfd):
+    """--ep_devices 2 --ep_mode psum --device cpu trains edge-partitioned
+    over two spawned gloo ranks end to end (train_unc(world=...)) and
+    writes every node's embedding; --ep_mode halo with --ep_devices is
+    accepted (its run: test_cli_trains_owner_sharded_on_two_ranks);
+    under supervised training --ep_devices is a logged no-op. (Until
+    slice E2 every --ep_devices > 0 was refused, until slice E3 --ep_mode
+    halo; the name stayed.)"""
+    notes = tcli.check_supported(tcli.get_args(
+        ["--link", "x", "--ep_devices", "2", "--ep_mode", "halo",
+         "--ep_partition", "bfs", "--scatter_backend", "windowed",
+         "--device", "cpu"]))
+    assert len(notes) == 1 and notes[0].startswith("--scatter_backend")
+    assert tcli.check_supported(tcli.get_args(["--link", "x"])) == []
+    notes = tcli.check_supported(tcli.get_args(
+        ["--link", "x", "--ep_devices", "2", "--supervised", "True",
+         "--device", "cpu"]))
+    assert len(notes) == 1 and "does not apply" in notes[0]
+    _sharded_cli_run(tmp_path, capfd, ["--ep_mode", "psum"])
+
+
+def test_cli_trains_owner_sharded_on_two_ranks(tmp_path, capfd):
+    """--ep_devices 2 --ep_mode halo --ep_partition bfs --device cpu:
+    owner-sharded training over two spawned gloo ranks end to end, the
+    export owner-sharded too, every node's embedding written."""
+    _sharded_cli_run(tmp_path, capfd, ["--ep_mode", "halo",
+                                       "--ep_partition", "bfs"])
 
 
 def test_cli_trains_on_the_cpu(tmp_path):
