@@ -4,8 +4,9 @@ and embedding export, the kernel bench, and SCM subgraph counting and
 matching with DMPNN, the other graph networks, the sequence networks,
 the attention and the memory predict nets, and scale-out over
 torch.distributed (data parallel, edge-partitioned and owner-sharded
-halo training, the north-star gate), with the port's four CUDA kernels
-built from this checkout.
+halo training, the north-star gate, the demonstration layer, the halo
+library and its benches, the dry run), with the port's four CUDA
+kernels built from this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -130,8 +131,9 @@ Phases (any failure raises and the script exits non-zero):
              outputs, the loss and every gradient, f32 and amp bf16, phase
              11's bounds, K3's launches against k3_launches), the train
              step at bsz 128 and the eval forward at 512 (events, device
-             ms, K3's share, peak device memory, LRP's perm envelope
-             p_max), and the reference's ER command line with its
+             ms and K3's share but for UNPROFILED_NETS, peak device
+             memory, LRP's perm envelope p_max), and the reference's ER
+             command line with its
              --rep_net for one epoch on phase 12's data, then
              cli/scm_evaluate and a finetune onto a 2-label vertex
              vocabulary, K3's launches counted from zero against the
@@ -143,7 +145,8 @@ Phases (any failure raises and the script exits non-zero):
              network a bsz-16 batch on the card against the CPU (phase
              14's checks; CNN's edge-weight targets refined to 518), the
              train step at bsz 128 and the eval forward at 512 (events,
-             device ms, peak memory), pred_with_deg at bsz 128 (K3's
+             device ms but for TXL (UNPROFILED_NETS), peak memory),
+             pred_with_deg at bsz 128 (K3's
              degree tables, the only K3 launches of these networks: the
              tables, the forward and every gradient on the card against
              the CPU in f32, and one train step's launches, 4 per chunk,
@@ -188,9 +191,10 @@ Phases (any failure raises and the script exits non-zero):
              rule; the train step at bsz 128 and the eval forward at 512
              of MEM_STEP (Mean, Sum and Max MemAttn and DIAMNet at mean
              over DMPNN, DIAMNet circular_lstm: events, peak memory, K3's
-             launches; for MEM_TIMED, MeanMemAttn and the two DIAMNets,
-             also device ms and the shares of the sparsemax's sort and
-             scan kernels and of cuDNN's RNN kernels by torch.profiler);
+             launches;
+             for MEM_TIMED, DIAMNet circular_lstm, also device ms and
+             the shares of the sparsemax's sort and scan kernels and of
+             cuDNN's RNN kernels by torch.profiler);
              the ER command line with --pred_net
              DIAMNet --pred_mem_init circular_lstm for one epoch on phase
              12's data, then cli/scm_evaluate; before them, DIAMNet
@@ -211,8 +215,24 @@ Phases (any failure raises and the script exits non-zero):
              CUPTI late in a long process has dropped whole traces);
              then train_epoch (one epoch) and
              train_unc (BACKBONE_LINKS links) over the two gloo ranks,
-             launches counted from zero. The two ranks' step times are
-             those of two ranks sharing one card, no scale-out speed;
+             launches counted from zero; then, in the same processes,
+             the E4 work (E4): the demonstration layer
+             (parallel/edge_partition.py) at bench/halo_bench.py's size
+             (V 100,000, E 1,000,000, H 64, 2 layers) on its power-law
+             and community graphs, two ranks against one rank on the
+             card (each layer's forward and the first gradients under
+             phase 5's f32 bounds, at most MAX_FLIPS leaky ReLU inputs
+             on the other side of zero, each within FLIP_TOL, 6 SGD
+             steps: losses,
+             parameters, the ranks bit for bit equal, K3's launches),
+             halo_bench.run at that size (each halo forward held to its
+             full sum), dryrun_multichip over the gloo ranks and the
+             NCCL world of one, and bench/partition_bench.py on the host
+             (PARTITION_BENCH); K3 at the demonstration layer's and the
+             halo layer's rank shapes against its plain version, timed
+             early in the run (e4_kernels). The two ranks' step times
+             are those of two ranks sharing one card, no scale-out
+             speed;
  19 halo     owner-sharded (halo) UNC training (parallel/halo_unc.py):
              phase 18's PubMed batch and models partitioned over two
              ranks sharing cuda:0 over gloo (degree partitioner: Vp =
@@ -263,7 +283,10 @@ their launches per EP rank and step as "launches_ep_rank_step"; phase
 19's halo rank shapes as "_halo_vp" (K1 into Vp, H = 50),
 "_halo_vt_send" (K1 into Vt through the sender order, W = 101) and
 "_halo_table" (K2 from the [Vt, 101] table), their launches per halo
-rank and step as "launches_halo_rank_step"), K4 at
+rank and step as "launches_halo_rank_step"; K3 at phase 18's E4 rank
+shapes as "_ep_layer" and "_halo_layer", its launches per
+demonstration-layer step on rank 0 as "launches_ep_layer_step" and in
+halo_bench's run as "launches_halo_bench_rank0"), K4 at
 the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
@@ -296,7 +319,16 @@ from dualmessagepassing_tpu_torch.data.dataset import (GraphAdjDataset,
                                                        lrp_batch)
 from dualmessagepassing_tpu_torch.data.lrp import (count_perms,
                                                    record_to_lrp_perms)
-from dualmessagepassing_tpu_torch.data.synthetic import generate_dataset
+from dualmessagepassing_tpu_torch.data.synthetic import (
+    generate_community_graph, generate_dataset, generate_large_graph)
+from dualmessagepassing_tpu_torch.bench import halo_bench, partition_bench
+from dualmessagepassing_tpu_torch.constants import LEAKY_RELU_A
+from dualmessagepassing_tpu_torch.dryrun import (_flagship_config,
+                                                 dryrun_multichip)
+from dualmessagepassing_tpu_torch.parallel.edge_partition import (
+    edge_parallel_dmp_apply, edge_parallel_grads, init_edge_parallel_params,
+    make_edge_parallel_train_step, pad_to_multiple, shard_flat_edges)
+from dualmessagepassing_tpu_torch.parallel.halo import build_halo_partition
 from dualmessagepassing_tpu_torch.gates import scm_convergence as scm_gate
 from dualmessagepassing_tpu_torch.gates import unc_convergence as unc_gate
 from dualmessagepassing_tpu_torch.graph import (add_reversed_edges,
@@ -461,6 +493,10 @@ SCM_GATE_LIMITS = {"dev_MNED_vs_zero": 0.9, "dev_MEED_vs_zero": 1.05}
 # read max_ngel = 32 relations)
 SCM_NETS = ("CompGCN", "RGCN", "RGIN", "LRP", "DMPLRP")
 LRP_NETS = ("LRP", "DMPLRP")
+# the networks whose train and eval steps are timed by events only, not
+# profiled, to keep the run inside its limit (the four torch.profiler
+# traces of a network's timing took ~18 s in phase 17)
+UNPROFILED_NETS = ("LRP", "DMPLRP", "TXL")
 # card against CPU on a bsz-16 flagship batch: the CPU runs it too, and
 # LRP's ~4,000 perms a graph make the CPU's f32 and amp steps the slow
 # part; the train step is timed at bsz 128, the eval forward at 512, as
@@ -510,9 +546,9 @@ MEM_STEP = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
             ("MaxMemAttnPredictNet", "DMPNN", "mean"),
             ("DIAMNet", "DMPNN", "mean"),
             ("DIAMNet", "DMPNN", "circular_lstm"))
-MEM_TIMED = (("MeanMemAttnPredictNet", "DMPNN", "mean"),
-             ("DIAMNet", "DMPNN", "mean"),
-             ("DIAMNet", "DMPNN", "circular_lstm"))
+# (MeanMemAttn and DIAMNet at mean are timed by events only, not
+# profiled, to keep the run inside its limit: ~20 s each, profiled)
+MEM_TIMED = (("DIAMNet", "DMPNN", "circular_lstm"),)
 MEM_KW = dict(ATTN_KW, pred_mem_len=4)
 MEM_NETS = ("MeanMemAttnPredictNet", "SumMemAttnPredictNet",
             "MaxMemAttnPredictNet", "DIAMNet")
@@ -549,6 +585,32 @@ EP_BACKBONES = ("DMPNN", "CompGCN", "RGCN", "RGIN")
 # the partitioner of the halo steps and kernel shapes (train_unc runs
 # bfs); at two ranks on PubMed's 63,109 nodes Vp = 31,555 and B = Vp
 HALO_PARTITION = "degree"
+
+# --- phase 18's E4 work: the demonstration layer, the halo library ----------
+# bench/halo_bench.py's graphs at its first size (V 100,000, E 1,000,000:
+# power-law, and as many communities as ranks with 95 % of the edges
+# inside one; seed 0), H 64, 2 layers; the demonstration layer's train
+# step as tests/test_parallel.py:114 runs it (features at 0.1, 6 SGD
+# steps) on the graph's first 10,000 triplets as DistMult samples with
+# random labels, at lr 0.05 (the test's) on the community graph. The
+# layer's sums are unnormalised, and the power-law graph's hub sums
+# ~22,000 in-edges: its first loss is in the hundreds, and at lr 1e-5
+# to 0.05 its loss oscillates or overflows within six steps (float32 on
+# the CPU at this size); at 1e-6 it falls smoothly
+E4 = dict(v=100_000, e=1_000_000, h=64, layers=2, steps=6, samples=10_000,
+          iters=5, lr={"power_law": 1e-6, "community95": 0.05})
+# K3 launches of the demonstration layer (parallel/edge_partition.py): a
+# forward counts the out-degrees once and sums each layer's messages
+# once; a train step's backward adds the two endpoint gathers of each
+# layer but the last (the last layer's edge rows do not reach the loss)
+# and the loss's three DistMult gathers; a halo forward sums each
+# layer's messages once (the out-degrees come from the host)
+E4_FWD_K3 = 1 + E4["layers"]
+E4_STEP_K3 = E4_FWD_K3 + 2 * (E4["layers"] - 1) + 3
+E4_HALO_K3 = E4["layers"]
+# partition_bench (host only) at its defaults and at ARCHITECTURE.md:209's
+# size: (nodes, shards)
+PARTITION_BENCH = ((4096, 8), (65_536, 8))
 
 # --- phases 7-10 ---------------------------------------------------------
 # Per train step of the other backbones (unc/model.py), N_LAYERS layers,
@@ -1535,15 +1597,11 @@ def phase_evaluate(emb, triplets, labeled, seed) -> dict:
 
 def scm_flagship_config() -> ModelConfig:
     """__graft_entry__.py:_flagship_config (39-53), which bench.py:116
-    trains: the Complex-dataset envelope, pattern <= 8V/8E, graph <=
-    64V/256E, 16 labels, reversed edges doubling E and the edge labels;
-    hid 64, 3 layers, ScalarFilter, SumPredictNet, nodeedge."""
-    return ModelConfig(
-        max_ngv=64, max_ngvl=16, max_nge=512, max_ngel=32,
-        max_npv=8, max_npvl=16, max_npe=16, max_npel=32,
-        hid_dim=64, rep_num_pattern_layers=3, rep_num_graph_layers=3,
-        pred_hid_dim=64, filter_net="ScalarFilter",
-        pred_return_weights="nodeedge")
+    trains, as dryrun.py copies it: the Complex-dataset envelope,
+    pattern <= 8V/8E, graph <= 64V/256E, 16 labels, reversed edges
+    doubling E and the edge labels; hid 64, 3 layers, ScalarFilter,
+    SumPredictNet, nodeedge."""
+    return _flagship_config()
 
 
 def scm_make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, lrp_seq_len=0,
@@ -2472,7 +2530,8 @@ def phase_scm_nets(dev, seed, data_dir) -> tuple:
         cfg = scm_flagship_config().replace(rep_net=net)
         worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
-                            train_bszs=(SCM_BSZ,))
+                            train_bszs=(SCM_BSZ,),
+                            profile=net not in UNPROFILED_NETS)
         paths.update(scm_net_cli(net, cli, root))
         out[net] = dict(worst=worst, timing=timing,
                         step_launches=k3_launches(cfg, train=True),
@@ -2574,7 +2633,8 @@ def phase_scm_seq(dev, seed, data_dir) -> tuple:
         cfg = scm_flagship_config().replace(rep_net=net, **kw)
         worst = scm_card_vs_cpu(cfg, dev, seed + 10 * i, SCM_NET_CMP_BSZ)
         timing = scm_timing(cfg, dev, seed + 10 * i + 1,
-                            train_bszs=(SCM_BSZ,))
+                            train_bszs=(SCM_BSZ,),
+                            profile=net not in UNPROFILED_NETS)
         deg, deg_worst = scm_deg_step(cfg.replace(pred_with_deg=True), dev,
                                       seed + 10 * i + 2)
         paths[f"scm_{net}_pred_with_deg_step"] = deg
@@ -3017,8 +3077,8 @@ def dist_train_unc(world, spec, dev) -> dict:
 def dist_rank(world, spec) -> dict:
     """One rank of phase 18: the DP steps, the EP gradients and step,
     (spec["halo"]) phase 19's halo gradients, step and collectives on
-    the same batch, and (spec["runs"]) train_epoch and train_unc over
-    the ranks."""
+    the same batch, (spec["runs"]) train_epoch and train_unc over the
+    ranks, and the E4 work (e4_rank: spec["e4"])."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = world.device
@@ -3031,6 +3091,7 @@ def dist_rank(world, spec) -> dict:
         out["dp_epoch"] = dist_dp_epoch(world, spec["runs"]["dp_epoch"], dev)
         out["train_unc"] = dist_train_unc(world, spec["runs"]["train_unc"],
                                           dev)
+    out["e4"] = e4_rank(world, spec["e4"], dev)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3225,11 +3286,15 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
     rank; K1 and K2 at the EP shard shape and K3 at the DP rank's shape
     against their plain versions; then (gloo) train_epoch for one epoch
     and train_unc on BACKBONE_LINKS links over the two ranks, launches
-    counted from zero. Two ranks sharing one card time no scale-out:
-    their step times are printed as what they are. -> (results, paths,
-    kernel rows). `kernels` are dist_kernels' rows of the same data
-    (dist_inputs), which main measures early in the run: late in a long
-    process CUPTI has dropped whole traces."""
+    counted from zero; and the E4 work in the same processes (e4_rank,
+    hold_e4): the demonstration layer and bench/halo_bench.py at E4's
+    size over the two gloo ranks, dryrun_multichip over both worlds,
+    bench/partition_bench.py on the host. Two ranks sharing one card
+    time no scale-out: their step times are printed as what they are.
+    -> (results, paths, kernel rows). `kernels` are dist_kernels' rows
+    of the same data (dist_inputs) with e4_kernels', which main measures
+    early in the run: late in a long process CUPTI has dropped whole
+    traces."""
     t0 = time.perf_counter()
     cfg = scm_flagship_config()
     dp_model = scm_model(cfg, seed)
@@ -3294,7 +3359,8 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
         gloo = dist.launch(dist_rank, 2, backend="gloo",
                            devices=[str(dev)] * 2,
                            init_file=os.path.join(tmp, "gloo"),
-                           args=(dict(spec, runs=runs),), timeout=900,
+                           args=(dict(spec, runs=runs, e4=dict(
+                               full=True, seed=seed + 57)),), timeout=900,
                            collective_timeout=300)
         t_gloo = time.perf_counter() - t1
         t1 = time.perf_counter()
@@ -3302,8 +3368,8 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
         # reads (one NCCL process for both phases)
         nccl = dist.launch(dist_rank, 1, backend="nccl", devices=[str(dev)],
                            init_file=os.path.join(tmp, "nccl"),
-                           args=(dict(spec, halo=True),), timeout=600,
-                           collective_timeout=300)
+                           args=(dict(spec, halo=True, e4=dict(full=False)),),
+                           timeout=600, collective_timeout=300)
         t_nccl = time.perf_counter() - t1
     print(f"dist: gloo, two ranks on {dev}: {t_gloo:.1f} s wall (ranks "
           f"{', '.join(f'{r['seconds']:.1f}' for r in gloo)} s of work); "
@@ -3414,15 +3480,324 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
           f"{n_req} export requests in {t0_['seconds']:.1f} s over 2 gloo "
           f"ranks on one card; coverage {t0_['coverage']:.4f}; launches "
           f"{want} on each rank; states and embeddings equal")
+    # the E4 work: the demonstration layer, the halo library, the dry run
+    e4_launches, e4_paths = hold_e4(gloo, nccl)
+    paths.update(e4_paths)
     # the kernels line prints rank 0's counts of one step, as read
     ep0 = gloo[0]["ep"]["grads"]["DMPNN"][False]
     launches = {"ep_step_per_rank": ep0[2],
-                "dp_step_per_rank": gloo[0]["dp"]["launches"][0]}
+                "dp_step_per_rank": gloo[0]["dp"]["launches"][0],
+                "e4": e4_launches}
     print(f"dist: phase 18 took {time.perf_counter() - t0:.1f} s")
     refs = dict(ref_ep=ref_ep, near=near, models=models, padded=padded,
                 one_rank_ms=ref_ep_time, nccl=nccl)
     return dict(worst=worst, kernels=kernels, launches=launches,
                 refs=refs), paths
+
+# --- phase 18's E4 work: the demonstration layer, the halo library, the
+# dry run -------------------------------------------------------------------
+
+def e4_graphs() -> dict:
+    """bench/halo_bench.py's two graphs at E4's size, over two ranks."""
+    v, e = E4["v"], E4["e"]
+    return {"power_law": generate_large_graph(v, e, seed=0)[0],
+            "community95": generate_community_graph(
+                v, e, num_communities=2, p_intra=0.95, seed=0)[0]}
+
+
+def e4_preact(out: torch.Tensor) -> torch.Tensor:
+    """A leaky ReLU's input, from its output."""
+    return torch.where(out >= 0, out, out / LEAKY_RELU_A)
+
+
+def e4_flips(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(count, worst): the leaky ReLU inputs (from the outputs `got` and
+    `want` of one layer) on the other side of zero in the two runs, and
+    the largest distance of one from zero, in either run, as a share of
+    that run's largest magnitude."""
+    a, b = e4_preact(got), e4_preact(want)
+    flip = torch.sign(a) != torch.sign(b)
+    n = int(flip.sum())
+    if not n:
+        return 0, 0.0
+    return n, max(float(a[flip].abs().max() / a.abs().max()),
+                  float(b[flip].abs().max() / b.abs().max()))
+
+
+def e4_edge_parallel(world, dev, trip, lr, seed) -> dict:
+    """The demonstration layer on one graph (random rev flags, features,
+    weights and relation table from the seed; SGD at rate lr), as this
+    rank of `world` and as one rank (world None) on the same card: each
+    layer's forward output (the forward cut after it), the largest error
+    against the one-rank path's as a share of phase 5's f32 bound and
+    the leaky ReLU inputs on the other side of zero (e4_flips; node
+    rows, replicated, and this rank's edge rows); the first step's
+    gradients against the one-rank path's under the same bound; then
+    E4["steps"] train steps both ways: the losses, the parameters after
+    each against the one-rank path's, the parameters after the last,
+    the step's CUDA-event ms; K3's launches of the sharded forward and
+    of a sharded step."""
+    v, e, h, layers = E4["v"], E4["e"], E4["h"], E4["layers"]
+    rng = np.random.default_rng(seed)
+    arrays = pad_to_multiple({"senders": trip[:, 0],
+                              "receivers": trip[:, 2],
+                              "rev_flag": rng.random(e) < 0.5}, world.size)
+    labels = torch.tensor(rng.random(E4["samples"]) < 0.5,
+                          dtype=torch.float32, device=dev)
+    samples = torch.tensor(trip[:E4["samples"]], device=dev)
+    # features at 0.1, as tests/test_parallel.py:114 draws them
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 0.1 * torch.randn(v, h, generator=gen, device=dev)
+    ef = 0.1 * torch.randn(len(arrays["senders"]), h, generator=gen,
+                           device=dev)
+    w_rel = 0.1 * torch.randn(int(trip[:, 1].max()) + 1, h, generator=gen,
+                              device=dev)
+    params = init_edge_parallel_params(
+        layers, h, generator=torch.Generator().manual_seed(seed), device=dev)
+    blk = len(arrays["senders"]) // world.size
+    rows = slice(world.rank * blk, (world.rank + 1) * blk)
+    runs = ((shard_flat_edges(world, arrays, dev), ef[rows]),
+            (shard_flat_edges(None, arrays, dev), ef))
+
+    def edges(run):
+        a, f = run
+        return (f, a["senders"], a["receivers"], a["rev_flag"],
+                a["edge_mask"])
+
+    def flat(p, w):
+        d = {f"{i}.{k}": t for i, layer in enumerate(p)
+             for k, t in layer.items()}
+        d["w_relation"] = w
+        return d
+
+    out = {"fwd_err": {}, "flips": {}}
+    with torch.inference_mode():
+        for depth in range(1, layers + 1):
+            sk.reset_launch_counts()
+            h2, e2 = edge_parallel_dmp_apply(params[:depth], x,
+                                             *edges(runs[0]), v, world)
+            torch.cuda.synchronize()
+            out["fwd_launches"] = dict(sk.LAUNCHES)
+            h1, e1 = edge_parallel_dmp_apply(params[:depth], x,
+                                             *edges(runs[1]), v)
+            e1 = e1[rows]
+            gmax = max(float(h1.abs().max()), float(e1.abs().max()))
+            for name, got, want in (("node", h2, h1), ("edge", e2, e1)):
+                bound = (TRAIN_F32_REL * float(want.abs().max())
+                         + TRAIN_F32_GLOBAL * gmax)
+                key = f"layer {depth} {name}"
+                out["fwd_err"][key] = float((got - want).abs().max()) / bound
+                out["flips"][key] = e4_flips(got, want)
+            del h1, e1, h2, e2
+
+    # the first step's gradients both ways, under phase 5's f32 bound
+    grads = {}
+    for key, run, w in (("sharded", runs[0], world), ("one", runs[1], None)):
+        _, g, g_rel = edge_parallel_grads(params, w_rel, x, *edges(run),
+                                          samples, labels, v, w)
+        grads[key] = flat(g, g_rel)
+    gmax = max(float(g.abs().max()) for g in grads["one"].values())
+    out["grad_err"] = max(
+        float((grads["sharded"][k] - g).abs().max())
+        / (TRAIN_F32_REL * float(g.abs().max()) + TRAIN_F32_GLOBAL * gmax)
+        for k, g in grads["one"].items())
+    del grads
+
+    # E4["steps"] SGD steps both ways: the losses, and the parameters
+    # after each step within rtol 1e-4, atol 1e-6 of the one-rank run's
+    # (tests/test_torch_edge_partition.py's), as a share of that bound
+    state = {"sharded": (params, w_rel), "one": (params, w_rel)}
+    steps = {"sharded": make_edge_parallel_train_step(world, v, layers, lr),
+             "one": make_edge_parallel_train_step(None, v, layers, lr)}
+    out["losses"] = {"sharded": [], "one": []}
+    out["param_err"] = 0.0
+    ms = []
+    for s in range(E4["steps"]):
+        for key, run in (("sharded", runs[0]), ("one", runs[1])):
+            p, w = state[key]
+            sk.reset_launch_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            p, w, loss = steps[key](p, w, x, *edges(run), samples, labels)
+            b.record()
+            torch.cuda.synchronize()
+            if key == "sharded":
+                ms.append(a.elapsed_time(b))
+                if s == 0:
+                    out["step_launches"] = dict(sk.LAUNCHES)
+            state[key] = (p, w)
+            out["losses"][key].append(loss.item())
+        got, want = flat(*state["sharded"]), flat(*state["one"])
+        out["param_err"] = max(out["param_err"], max(
+            float(((got[k] - t).abs() / (1e-6 + 1e-4 * t.abs())).max())
+            for k, t in want.items()))
+    out["step_ms"] = statistics.median(ms)
+    out["params"] = {k: t.cpu().numpy()
+                     for k, t in flat(*state["sharded"]).items()}
+    return out
+
+
+def e4_rank(world, spec, dev) -> dict:
+    """Phase 18's E4 work as one rank: (spec["full"]) the demonstration
+    layer on both of e4_graphs' graphs (e4_edge_parallel) and
+    bench/halo_bench.run at E4's size, every halo forward asserted
+    against its full sum; then dryrun_multichip; each run's launches
+    counted from zero."""
+    out = {}
+    torch.cuda.empty_cache()
+    if spec["full"]:
+        graphs = e4_graphs()
+        out["edge_parallel"] = {
+            name: e4_edge_parallel(world, dev, trip, E4["lr"][name],
+                                   spec["seed"] + i)
+            for i, (name, trip) in enumerate(graphs.items())}
+        del graphs
+        torch.cuda.empty_cache()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        out["halo_bench"] = halo_bench.run(
+            world, v=E4["v"], edges=[E4["e"]], h=E4["h"],
+            layers=E4["layers"], iters=E4["iters"],
+            print_fn=lambda line: None)
+        out["halo_bench_s"] = time.perf_counter() - t0
+        out["halo_bench_launches"] = dict(sk.LAUNCHES)
+        torch.cuda.empty_cache()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["dryrun"] = dryrun_multichip(world)
+    torch.cuda.synchronize()
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_launches"] = dict(sk.LAUNCHES)
+    return out
+
+
+def e4_kernels(dev, seed) -> dict:
+    """K3 at the two call shapes of the E4 work, f32, H = 64, against its
+    plain version, each timed beside one index_add_ and its HBM bound:
+    rank 0's partial aggregation of the demonstration layer (its 500,000
+    edge rows of the power-law graph into the V = 100,000 node rows), and
+    rank 0's local aggregation of the halo layer (its edges of the
+    degree partition into its Vp owned rows; the pad slots' receiver Vp
+    is dropped)."""
+    v, e = E4["v"], E4["e"]
+    trip = generate_large_graph(v, e, seed=0)[0]
+    rng = np.random.default_rng(seed)
+    out = {"ep_layer": k3_timed(
+        "EP layer rank", torch.from_numpy(trip[: e // 2, 2].copy()).to(dev),
+        v, E4["h"], torch.float32, dev, rng)}
+    part = build_halo_partition(trip[:, 0], trip[:, 2], np.zeros(e, bool), v,
+                                2, method="degree")
+    out["halo_layer"] = k3_timed(
+        "halo layer rank", torch.from_numpy(part["local_receivers"][0]).to(
+            dev), part["Vp"], E4["h"], torch.float32, dev, rng)
+    out["halo_layer"]["shape"] = dict(vp=part["Vp"], ep=part["Ep"],
+                                      n_real=int(part["edge_mask"][0].sum()))
+    return out
+
+
+def hold_e4(gloo, nccl) -> tuple:
+    """Phase 18's E4 checks on the ranks' results (e4_rank's): the
+    demonstration layer's forward and steps against the one-rank path
+    (phase 5's f32 bounds; at most MAX_FLIPS leaky ReLU inputs on the
+    other side of zero, each within FLIP_TOL of it: each such edge row
+    moves a weight's gradient, a sum over every edge, by one term), K3's
+    launches, the ranks bit for bit equal; halo_bench's records (its
+    halo forwards held to the full sum in the ranks) and launches; the
+    dry run's losses, equal over the gloo ranks, finite over NCCL. ->
+    (launches for the kernels line, paths)."""
+    paths, launches = {}, {}
+    for name in gloo[0]["e4"]["edge_parallel"]:
+        ranks = [r["e4"]["edge_parallel"][name] for r in gloo]
+        for r, res in enumerate(ranks):
+            check(res["fwd_launches"] == k3_dict(E4_FWD_K3)
+                  and res["step_launches"] == k3_dict(E4_STEP_K3),
+                  f"e4 {name} rank {r}: forward launched "
+                  f"{res['fwd_launches']}, a step {res['step_launches']}; "
+                  f"expected {E4_FWD_K3} and {E4_STEP_K3} K3 launches")
+            worst = max(res["fwd_err"].values())
+            check(worst <= 1.0 and res["grad_err"] <= 1.0
+                  and res["param_err"] <= 1.0,
+                  f"e4 {name} rank {r}: forward {res['fwd_err']}, first "
+                  f"gradients {res['grad_err']:.3f} of phase 5's f32 bound; "
+                  f"parameters {res['param_err']:.3f} of rtol 1e-4, atol "
+                  "1e-6")
+            for got, want in zip(res["losses"]["sharded"],
+                                 res["losses"]["one"]):
+                check(np.isfinite(got) and abs(got - want) <= 1e-5 * abs(
+                    want), f"e4 {name} rank {r}: loss {got} vs one rank "
+                    f"{want}")
+            losses = res["losses"]["sharded"]
+            check(losses[-1] < losses[0], f"e4 {name} rank {r}: the loss "
+                  f"did not fall: {losses}")
+        flips = {}
+        for key in ranks[0]["flips"]:
+            per = [res["flips"][key] for res in
+                   (ranks[:1] if "node" in key else ranks)]
+            flips[key] = (sum(n for n, _ in per), max(f for _, f in per))
+            check(flips[key][0] <= MAX_FLIPS and flips[key][1] <= FLIP_TOL,
+                  f"e4 {name} {key}: {flips[key][0]} leaky ReLU inputs on "
+                  "the other side of zero than in the one-rank run, the "
+                  f"farthest {flips[key][1]:.2e} of its scale from it (at "
+                  f"most {MAX_FLIPS} within {FLIP_TOL:g} are rounding)")
+        a, b = (res["params"] for res in ranks)
+        check(ranks[0]["losses"]["sharded"] == ranks[1]["losses"]["sharded"]
+              and all(np.array_equal(a[k], b[k]) for k in a),
+              f"e4 {name}: the ranks differ")
+        r0 = ranks[0]
+        print(f"e4 edge-parallel {name} (V {E4['v']}, E {E4['e']}, H "
+              f"{E4['h']}, {E4['layers']} layers, lr {E4['lr'][name]:g}; "
+              "two gloo ranks on one card against one rank): forward "
+              "within phase 5's f32 bound "
+              f"(worst {max(r0['fwd_err'].values()):.3f} of it), leaky "
+              f"ReLU inputs on the other side of zero {flips}; "
+              f"{E4['steps']} steps, losses {r0['losses']['sharded']} vs "
+              f"one rank {r0['losses']['one']}, first gradients within "
+              f"{max(r['grad_err'] for r in ranks):.3f} of the bound, "
+              f"parameters within "
+              f"{max(r['param_err'] for r in ranks):.3f} of rtol 1e-4, "
+              f"atol 1e-6, ranks bit for bit equal; K3 {E4_FWD_K3} a forward, "
+              f"{E4_STEP_K3} a step; step {r0['step_ms']:.3f} ms median "
+              "(CUDA events, rank 0 of two sharing one card: not a "
+              "scale-out speed)")
+        paths[f"e4_edge_parallel_{name}_step_rank0"] = r0["step_launches"]
+        launches[f"ep_layer_{name}_fwd"] = r0["fwd_launches"]
+        launches[f"ep_layer_{name}_step"] = r0["step_launches"]
+
+    g0 = gloo[0]["e4"]
+    for rec in g0["halo_bench"]:
+        print(f"e4 halo_bench: {json.dumps(rec)}")
+    per_graph = (2 + E4["iters"]) * (E4_FWD_K3 + 2 * E4_HALO_K3)
+    want = k3_dict(2 * per_graph)
+    check(all(r["e4"]["halo_bench_launches"] == want for r in gloo),
+          f"e4 halo_bench: launched "
+          f"{[r['e4']['halo_bench_launches'] for r in gloo]}, expected "
+          f"{want} on each rank")
+    print(f"e4 halo_bench: {len(g0['halo_bench'])} records in "
+          f"{g0['halo_bench_s']:.1f} s over two gloo ranks on one card "
+          f"(times by CUDA events, rank 0; not a scale-out speed); every "
+          f"halo forward within {halo_bench.HALO_TOL:g} of its full sum "
+          f"(worst {max(r['max_err'] for r in g0['halo_bench']):.2e}); K3 "
+          f"{want} on each rank")
+    paths["e4_halo_bench_rank0"] = g0["halo_bench_launches"]
+    launches["halo_bench"] = g0["halo_bench_launches"]
+
+    d = [r["e4"]["dryrun"] for r in gloo]
+    check(d[0] == d[1], f"e4 dryrun: the gloo ranks' losses differ: {d}")
+    print(f"e4 dryrun_multichip, two gloo ranks on one card: {d[0]} "
+          f"({g0['dryrun_s']:.1f} s); NCCL world of one: "
+          f"{nccl[0]['e4']['dryrun']} ({nccl[0]['e4']['dryrun_s']:.1f} s)")
+    paths["e4_dryrun_gloo_rank0"] = g0["dryrun_launches"]
+    paths["e4_dryrun_nccl"] = nccl[0]["e4"]["dryrun_launches"]
+
+    t0 = time.perf_counter()
+    for n, shards in PARTITION_BENCH:
+        partition_bench.run(n, shards, print_fn=lambda line: print(
+            f"e4 partition_bench (host): {line}"))
+    print(f"e4 partition_bench: {time.perf_counter() - t0:.1f} s on the "
+          "host")
+    return launches, paths
+
 
 # --- phase 19: owner-sharded (halo) UNC training ----------------------------
 
@@ -3841,6 +4216,17 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
     k3.update(times(dk["K3"], "_dp_rank"))
     k3["max_abs_err"] = max(k3["max_abs_err"], dk["K3"]["err"])
     k3["launches_dp_rank_step"] = scm_dist["launches"]["dp_step_per_rank"]
+    # the E4 work: the demonstration layer's partial aggregation and the
+    # halo layer's local one, each rank 0's of two
+    for name in ("ep_layer", "halo_layer"):
+        k3.update(times(dk[f"K3_{name}"], f"_{name}"))
+        k3["max_abs_err"] = max(k3["max_abs_err"], dk[f"K3_{name}"]["err"])
+    e4 = scm_dist["launches"]["e4"]
+    k3["launches_ep_layer_step"] = {
+        k[len("ep_layer_"):-len("_step")]: v.get("segment_sum_unsorted", 0)
+        for k, v in e4.items() if k.endswith("_step")}
+    k3["launches_halo_bench_rank0"] = e4["halo_bench"].get(
+        "segment_sum_unsorted", 0)
     per_rank = scm_dist["launches"]["ep_step_per_rank"]
     hk = unc_halo["kernels"]
     halo_step = unc_halo["launches_step"]
@@ -3972,8 +4358,10 @@ def main() -> int:
     # phase 18's kernels at its shapes, while the process is young
     dist_data = dist_inputs(args.seed + 50, graph, triplets)
     dist_k = dist_kernels(dev, *dist_data, args.seed + 54)
-    # phase 19's at a halo rank's shapes
+    # phase 19's at a halo rank's shapes, and K3 at phase 18's E4 shapes
     halo_k = halo_kernels(dev, dist_data[1], args.seed + 55)
+    dist_k.update({f"K3_{k}": v for k, v in
+                   e4_kernels(dev, args.seed + 56).items()})
     del dist_data
 
     # phases 7-10: the other backbones, attributed inputs, supervised

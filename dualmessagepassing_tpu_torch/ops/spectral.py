@@ -4,8 +4,10 @@
 Reference: SubgraphCountingMatching/utils/graph.py:11-71. The bounds set
 the DMPLayer init scale (init_neigenv / init_eeigenv); the reference's
 training script clamps them to >= 4.0 (train.py:1174-1186). The device
-edge norm (spectral.py:71) serves the CompGCN/R-GCN SCM models and is
-not ported.
+edge norm (edge_norm_device, spectral.py:71) is not ported: no JAX model
+calls it (models/compgcn.py:84-93 computes its norms inline, and the
+port's CompGCN and R-GCN use degree_norms). It waits with the other
+helpers off every path (ROADMAP.md queue 1 item 3).
 """
 
 from __future__ import annotations

@@ -1,7 +1,20 @@
 """Scale-out of the port over torch.distributed
 (dualmessagepassing_tpu/parallel/): process groups, the launcher and the
 collectives (dist.py), data-parallel SCM training (dp.py),
-edge-partitioned UNC training (ep_unc.py) and owner-sharded (halo) UNC
-training (halo_unc.py). The JAX package's demonstration layer
-(edge_partition.py) and its halo library helpers (halo.py) are not
-ported yet."""
+edge-partitioned UNC training (ep_unc.py), owner-sharded (halo) UNC
+training (halo_unc.py), and the JAX package's demonstration layer
+(edge_partition.py) and halo library (halo.py), the bare DMP layer over
+a full sum and over a halo exchange. The names below are exported as
+the JAX package's parallel/__init__.py exports them."""
+
+from .edge_partition import (edge_parallel_dmp_apply,
+                             init_edge_parallel_params,
+                             make_edge_parallel_train_step, pad_to_multiple,
+                             params_from_jax, shard_flat_edges)
+from .halo import (build_halo_partition, make_halo_dmp_apply,
+                   shard_halo_arrays, unshard_nodes)
+
+__all__ = ["build_halo_partition", "edge_parallel_dmp_apply",
+           "init_edge_parallel_params", "make_edge_parallel_train_step",
+           "make_halo_dmp_apply", "pad_to_multiple", "params_from_jax",
+           "shard_flat_edges", "shard_halo_arrays", "unshard_nodes"]

@@ -29,6 +29,8 @@ per device, over a torch.distributed process group:
   * halo_exchange and all_gather_rows are the two collectives of that
     owner-sharded mode (jax.lax.all_to_all and jax.lax.all_gather in
     the JAX package), each with its true adjoint as its backward.
+    halo_table builds a layer's [owned; halo; dump] sender table with
+    one halo_exchange (the UNC models and parallel/halo.py read it).
   * all_reduce_grads sums each parameter's gradient over the ranks.
 
 The convention that makes every gradient exact: each rank computes the
@@ -49,8 +51,8 @@ import os
 import queue
 import time
 import traceback
-from typing import (Any, Callable, Iterable, List, Optional, Sequence,
-                    Tuple)
+from typing import (Any, Callable, Iterable, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import torch
 import torch.distributed as dist
@@ -170,6 +172,29 @@ def halo_exchange(send: torch.Tensor, world: World) -> torch.Tensor:
     return _HaloExchange.apply(send, world)
 
 
+def halo_table(node_feat: torch.Tensor, sub: Mapping[str, torch.Tensor],
+               world: World) -> torch.Tensor:
+    """The owner-sharded sender table [Vp + n * B + 1, H]: this rank's
+    owned rows, then the boundary rows the other ranks own (B from each
+    owner o at Vp + o * B, fetched with one halo_exchange), then a zero
+    dump row for the pad edges (the JAX package's unc/model.py:384-403).
+    The send buffer [n, B, H] holds, at the real slots of send_mask,
+    the owned rows send_idx names there, and zeros elsewhere: the rows
+    are gathered at the real slots only (send_pos, send_rows:
+    parallel/halo_unc.attach_halo_csr_plans), so the backward sums into
+    each owned row only the slots that send it. (JAX gathers every slot and masks; its
+    pad slots all name row 0, and a gather's backward over that many
+    duplicates of one row made a rank's PubMed step 87-124 device ms
+    instead of 27-28 on an H100, chip_smoke.py phase 19.)"""
+    n, b = sub["send_idx"].shape
+    h = node_feat.shape[-1]
+    rows = node_feat.index_select(0, sub["send_rows"])
+    send = node_feat.new_zeros(n * b, h).index_copy(0, sub["send_pos"], rows)
+    recv = halo_exchange(send.view(n, b, h), world)
+    return torch.cat([node_feat, recv.reshape(n * b, h),
+                      node_feat.new_zeros(1, h)])
+
+
 class _AllGatherRows(torch.autograd.Function):
 
     @staticmethod
@@ -232,14 +257,21 @@ def same_on_all_ranks(value: int, world: World) -> bool:
 # the launcher
 # -----------------------------------------------------------------------------
 
-def launch_plan(n: int, device) -> Tuple[str, List[str]]:
+def launch_plan(n: int, device,
+                backend: Optional[str] = None) -> Tuple[str, List[str]]:
     """The command lines' (backend, one device per rank) for n ranks of a
     run on `device`: gloo with every rank on the CPU for a CPU device,
     else NCCL with rank r on cuda:r; more ranks than visible CUDA devices
-    are refused (the JAX CLI's rule, cli/scm_train.py:211-214)."""
+    are refused (the JAX CLI's rule, cli/scm_train.py:211-214).
+    backend="gloo" on a CUDA device puts rank r on cuda:(r mod the
+    visible count), so ranks may share a card (NCCL refuses that)."""
     if torch.device(device).type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend} on the CPU: use gloo")
         return "gloo", ["cpu"] * n
     n_avail = torch.cuda.device_count()
+    if backend == "gloo" and n_avail:
+        return "gloo", [f"cuda:{r % n_avail}" for r in range(n)]
     if n > n_avail:
         raise ValueError(f"{n} ranks but only {n_avail} CUDA devices are "
                          "visible")

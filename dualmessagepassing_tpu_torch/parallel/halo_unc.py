@@ -12,8 +12,8 @@ replicated [V, H] sum (parallel/ep_unc.py) outgrows the links:
     aggregation completes on the rank, with no sum of [V, H] over the
     ranks;
   * each layer fetches the boundary sender rows it needs with one
-    exchange of [n, B, H] (parallel/dist.halo_exchange; unc/model.
-    _halo_table); B <= Vp by construction;
+    exchange of [n, B, H] (parallel/dist.halo_exchange;
+    parallel/dist.halo_table); B <= Vp by construction;
   * the BatchNorm statistics, the per-relation means and the
     regularisers' sums and counts are summed over the ranks, as in the
     edge-partitioned mode;
@@ -356,7 +356,7 @@ def attach_halo_csr_plans(shard: Dict[str, np.ndarray],
                   rows); its tail is flat, as no receiver is >= Vp;
       send_pos    int64: the real slots of the flattened [n * B]
                   send_mask, send_rows the owned rows send_idx names
-                  there (the send buffer's gather, unc/model._halo_table);
+                  there (the send buffer's gather, dist.halo_table);
     and with sender_plan=True (training), from a stable sort of the real
     local senders:
       sk2_order   int64 [n_real], sk2_rowptr int32 [Vt+1]: the sender

@@ -58,10 +58,10 @@ Port notes:
     owner=True) sets owner_rows): node rows are this rank's owned rows
     [Vp], every edge lives on the rank that owns its receiver, and the
     senders address the composite table [owned; halo; zero dump]
-    (_halo_table: one exchange of [n, B, H] a layer). The aggregation
-    is then complete on the rank, with no sum over the ranks; the
-    sender gathers run on the sender plan over that table's Vt rows
-    (sk2_*), DualGraphConv's receiver gather of its [Vt, 2H+1] table on
+    (parallel/dist.halo_table: one exchange of [n, B, H] a layer). The
+    aggregation is then complete on the rank, with no sum over the
+    ranks; the sender gathers run on the sender plan over that table's
+    Vt rows (sk2_*), DualGraphConv's receiver gather of its [Vt, 2H+1] table on
     a receiver plan over Vt rows (skt_rowptr), the aggregation on one
     over Vp (sk_rowptr). The DistMult score reads the all-gathered
     [n * Vp, H] table by packed ids (UNCTrainModel._full_rows).
@@ -84,7 +84,7 @@ from ..models.layers import dropout as _dropout
 from ..ops.encoding import get_enc_len, multihot_table
 from ..ops.segment_kernel import (GatherRowsSorted, SegmentSumSorted,
                                   gather_rows_perm)
-from ..parallel.dist import all_gather_rows, all_reduce_sum, halo_exchange
+from ..parallel.dist import all_gather_rows, all_reduce_sum, halo_table
 from ..utils.amp import cast_floats
 from ..utils.init import embedding_uniform, scaled, xavier_uniform
 
@@ -110,28 +110,6 @@ def _onehot_rows(table: torch.Tensor, idx: torch.Tensor,
     if clip:
         idx = idx.clamp(0, n - 1)
     return F.one_hot(idx, n).to(table.dtype) @ table
-
-
-def _halo_table(node_feat: torch.Tensor, sub: Sub, world) -> torch.Tensor:
-    """The owner-sharded sender table [Vp + n * B + 1, H]: this rank's
-    owned rows, then the boundary rows the other ranks own (B from each
-    owner o at Vp + o * B, fetched with one halo_exchange), then a zero
-    dump row for the pad edges (unc/model.py:384-403). The send buffer
-    [n, B, H] holds, at the real slots of send_mask, the owned rows
-    send_idx names there, and zeros elsewhere: the rows are gathered at
-    the real slots only (send_pos, send_rows: parallel/halo_unc.
-    attach_halo_csr_plans), so the backward sums into each owned row
-    only the slots that send it. (JAX gathers every slot and masks; its
-    pad slots all name row 0, and a gather's backward over that many
-    duplicates of one row made a rank's PubMed step 87-124 device ms
-    instead of 27-28 on an H100, chip_smoke.py phase 19.)"""
-    n, b = sub["send_idx"].shape
-    h = node_feat.shape[-1]
-    rows = node_feat.index_select(0, sub["send_rows"])
-    send = node_feat.new_zeros(n * b, h).index_copy(0, sub["send_pos"], rows)
-    recv = halo_exchange(send.view(n, b, h), world)
-    return torch.cat([node_feat, recv.reshape(n * b, h),
-                      node_feat.new_zeros(1, h)])
 
 
 def _out_degrees(sub: Sub, world=None) -> torch.Tensor:
@@ -215,7 +193,7 @@ class DualGraphConv(nn.Module):
                              "'out_deg' (parallel/halo_unc.build_halo_sub)")
         out_deg = (sub["out_deg"] if "out_deg" in sub
                    else _out_degrees(sub, self.row_world))
-        table = (_halo_table(node_feat, sub, self.row_world) if owner
+        table = (halo_table(node_feat, sub, self.row_world) if owner
                  else node_feat)
 
         # ONE [V, 2H+1] endpoint table ([Vt, 2H+1] owner-sharded, the
@@ -404,7 +382,7 @@ class CompGraphConv(nn.Module):
                 edge_feat: torch.Tensor, edge_norm=None, train: bool = False,
                 generator=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = node_feat.dtype
-        table = (_halo_table(node_feat, sub, self.row_world)
+        table = (halo_table(node_feat, sub, self.row_world)
                  if self.owner_rows else node_feat)
         at_send = gather_rows_perm(table, sub["senders"],        # bwd K1
                                    sub.get("sk2_order"), sub.get("sk2_rowptr"))
@@ -514,7 +492,7 @@ class RelGraphConvFlat(nn.Module):
     def forward(self, sub: Sub, node_feat: torch.Tensor, edge_norm=None,
                 train: bool = False, generator=None) -> torch.Tensor:
         dt = node_feat.dtype
-        table = (_halo_table(node_feat, sub, self.row_world)
+        table = (halo_table(node_feat, sub, self.row_world)
                  if self.owner_rows else node_feat)
         src = gather_rows_perm(table, sub["senders"],            # bwd K1
                                sub.get("sk2_order"), sub.get("sk2_rowptr"))

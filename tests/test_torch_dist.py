@@ -1,6 +1,7 @@
 """The port's process groups (dualmessagepassing_tpu_torch/parallel/) on
 the CPU over gloo, and the rank functions that tests/test_torch_dp.py,
-tests/test_torch_ep_unc.py and tests/test_torch_halo_unc.py launch.
+tests/test_torch_ep_unc.py, tests/test_torch_halo_unc.py,
+tests/test_torch_edge_partition.py and tests/test_torch_halo.py launch.
 
 This file imports no JAX: the ranks are spawned processes that import it
 by name, and the machine with the card has no JAX. The JAX side of those
@@ -20,11 +21,14 @@ import pytest
 import torch
 
 from dualmessagepassing_tpu_torch import graph as tg
+from dualmessagepassing_tpu_torch.bench import halo_bench
 from dualmessagepassing_tpu_torch.models import scm_models as sm
 from dualmessagepassing_tpu_torch.ops.segment_kernel import attach_csr_plan
 from dualmessagepassing_tpu_torch.parallel import dist as pd
 from dualmessagepassing_tpu_torch.parallel import dp
+from dualmessagepassing_tpu_torch.parallel import edge_partition
 from dualmessagepassing_tpu_torch.parallel import ep_unc
+from dualmessagepassing_tpu_torch.parallel import halo
 from dualmessagepassing_tpu_torch.parallel import halo_unc
 from dualmessagepassing_tpu_torch.train import checkpoint as ck
 from dualmessagepassing_tpu_torch.train import scm_driver as sd
@@ -249,6 +253,72 @@ def unc_halo_rank(world, specs, train):
             pin(m, pins)
         res["state"] = _numpy(m.state_dict())
         out[name] = res
+    return out
+
+
+# -----------------------------------------------------------------------------
+# the demonstration layer and the halo library (tests/test_torch_edge_
+# partition.py, tests/test_torch_halo.py)
+# -----------------------------------------------------------------------------
+
+def _flat_edges(world, case):
+    return edge_partition.shard_flat_edges(
+        world, dict(case["arrays"], edge_feat=case["edge_feat"]), "cpu")
+
+
+def edge_partition_rank(world, fwd, step):
+    """The demonstration layer as this rank of `world` (None: the one-rank
+    path): the forward of case `fwd` (node rows; this rank's edge rows)
+    and the train steps of case `step` (each step's loss, then the layer
+    parameters and the relation table after it)."""
+    a = _flat_edges(world, fwd)
+    h, e = edge_partition.edge_parallel_dmp_apply(
+        edge_partition.params_from_jax(fwd["params"], "cpu"),
+        torch.from_numpy(fwd["node_feat"]), a["edge_feat"], a["senders"],
+        a["receivers"], a["rev_flag"], a["edge_mask"], fwd["V"], world)
+    out = {"h": h.numpy(), "e": e.numpy(), "losses": [], "params": [],
+           "w_rel": []}
+    a = _flat_edges(world, step)
+    train = edge_partition.make_edge_parallel_train_step(
+        world, step["V"], len(step["params"]), step["lr"])
+    p = edge_partition.params_from_jax(step["params"], "cpu")
+    w = torch.from_numpy(step["w_rel"])
+    x = torch.from_numpy(step["node_feat"])
+    samples = torch.from_numpy(step["samples"])
+    labels = torch.from_numpy(step["labels"])
+    for _ in range(step["steps"]):
+        p, w, loss = train(p, w, x, a["edge_feat"], a["senders"],
+                           a["receivers"], a["rev_flag"], a["edge_mask"],
+                           samples, labels)
+        out["losses"].append(loss.item())
+        out["params"].append([_numpy(layer) for layer in p])
+        out["w_rel"].append(w.numpy().copy())
+    return out
+
+
+def halo_lib_rank(world, cases, bench):
+    """Per case of `cases` (a graph, its features, the parameters and a
+    partitioner) this rank's halo forward (its owned node rows and edge
+    rows, parallel/halo.py) and full-sum forward (the node rows and this
+    rank's edge block); then bench/halo_bench.run at `bench`'s sizes."""
+    out = {}
+    for name, c in cases.items():
+        params = edge_partition.params_from_jax(c["params"], "cpu")
+        part = halo.build_halo_partition(c["senders"], c["receivers"],
+                                         c["rev"], c["V"], world.size,
+                                         method=c["method"])
+        arrs = halo.shard_halo_arrays(world, part, c["node_feat"],
+                                      c["edge_feat"], "cpu")
+        h, e = halo.make_halo_dmp_apply(world, len(params))(
+            params, *[arrs[k] for k in halo.ARG_ORDER])
+        a = _flat_edges(world, c)
+        h_full, e_full = edge_partition.edge_parallel_dmp_apply(
+            params, torch.from_numpy(c["node_feat"]), a["edge_feat"],
+            a["senders"], a["receivers"], a["rev_flag"], a["edge_mask"],
+            c["V"], world)
+        out[name] = dict(h=h.numpy(), e=e.numpy(), h_full=h_full.numpy(),
+                         e_full=e_full.numpy())
+    out["bench"] = halo_bench.run(world, **bench)
     return out
 
 
@@ -488,3 +558,18 @@ def test_ep_shards_and_plans_cover_the_subgraph():
     holes = dict(padded, edge_mask=np.roll(padded["edge_mask"], 1))
     with pytest.raises(ValueError, match="prefix"):
         ep_unc.shard_sub(holes, worlds[0])
+
+
+def test_launch_plan_lets_gloo_ranks_share_a_card(monkeypatch):
+    """The command lines' plan: gloo on the CPU; NCCL one card a rank,
+    refused past the visible cards; backend gloo on CUDA puts the ranks
+    round-robin on the cards, two on one card."""
+    assert pd.launch_plan(2, "cpu") == ("gloo", ["cpu", "cpu"])
+    with pytest.raises(ValueError):
+        pd.launch_plan(2, "cpu", "nccl")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert pd.launch_plan(1, "cuda") == ("nccl", ["cuda:0"])
+    with pytest.raises(ValueError):
+        pd.launch_plan(2, "cuda")
+    assert pd.launch_plan(2, "cuda", "gloo") == ("gloo",
+                                                 ["cuda:0", "cuda:0"])

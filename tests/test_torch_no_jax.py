@@ -42,7 +42,10 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     # scale-out over torch.distributed
     "parallel", "parallel.dist", "parallel.dp", "parallel.ep_unc",
     # owner-sharded (halo) training and the north-star gate
-    "parallel.halo_unc", "gates.northstar")]
+    "parallel.halo_unc", "gates.northstar",
+    # the demonstration layer, the halo library, its benches, the dry run
+    "parallel.edge_partition", "parallel.halo", "bench.halo_bench",
+    "bench.partition_bench", "dryrun")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
