@@ -5,8 +5,9 @@ matching with DMPNN, the other graph networks, the sequence networks,
 the attention and the memory predict nets, and scale-out over
 torch.distributed (data parallel, edge-partitioned and owner-sharded
 halo training, the north-star gate, the demonstration layer, the halo
-library and its benches, the dry run), with the port's four CUDA
-kernels built from this checkout.
+library and its benches, the dry run), the helpers off every model
+path and the examples, with the port's four CUDA kernels built from
+this checkout.
 
     python3 chip_smoke.py          # from the root of the checkout
 
@@ -93,7 +94,8 @@ Phases (any failure raises and the script exits non-zero):
              event and torch.profiler device ms, K3's share, pairs/s and
              edges/s; then the user's path counted from zero:
              generate_dataset (an ER set at the scm_er_counting sizes),
-             BucketSampler, train_epoch for SCM_LEARN["epochs"] epochs and
+             BucketSampler, train_epoch for SCM_LEARN["epochs"] epochs at
+             scm_train's default learning-rate schedule and
              evaluate_epoch — the loss finite and falling, MAE/MNED/MEED
              printed, K3's launches equal to the derived count;
  12 SCM CLI  the reference's Erdos-Renyi command line at its published
@@ -172,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
              float32 error on them),
              per network the train step at bsz 128 and the eval forward
              at 512 (events, peak memory, K3's launches; for ATTN_TIMED,
-             MeanAttn over DMPNN and over CNN, also device ms and the
+             MeanAttn over DMPNN, also device ms and the
              share of the sparsemax's sort and scan kernels by
              torch.profiler); the ER command line with
              --pred_net MeanAttnPredictNet for one epoch on phase 12's
@@ -248,7 +250,29 @@ Phases (any failure raises and the script exits non-zero):
              BACKBONE_LINKS links, every node's row exported) and the
              north-star gate (gates/northstar.py at its CI envelope: v
              2,000, e 40,000, 6 amp steps, a checkpoint restored mid-run)
-             over the two gloo ranks, launches counted from zero.
+             over the two gloo ranks, launches counted from zero;
+ 20 helpers, examples  (a, early in the run, after phase 18's kernels)
+             the four helpers (scatter_sum_flat, scatter_max_edges,
+             segment_softmax_edges, edge_norm_device) at the flagship's
+             graph side (bsz 128, E 512, V 64, H 64) and the flat graph
+             of scatter_sum_flat's docstring (V 82,465, E 497,664, H 64,
+             receivers partly given as r - V, some edges masked), f32 and
+             bf16: output and gradient on the card against the CPU under
+             phase 11's bounds, K3's launches per call and per backward
+             counted from zero and held to HELPER_K3, each timed beside
+             one PyTorch call (index_add_, scatter_reduce amax) and its
+             bytes over 3.35 TB/s; K3 at the flat sum's and the softmax
+             denominator's shapes against its plain version, timed; (b)
+             the examples (dualmessagepassing_tpu_torch/examples/):
+             quickstart_scm and performance_levers' SCM step (f32, amp:
+             losses, gradients, parameters after the step) and one-device
+             train_unc (losses, embeddings) on cuda:0 against the CPU,
+             and, inside phase 18's spawns (the gloo pair, the NCCL world
+             of one), multichip_dp, edge_parallel and the owner-sharded
+             train_unc against the same on the CPU (train_unc at the same
+             world size: the gloo ranks again over the CPU, the NCCL
+             world's in this process over a gloo group of one), each
+             run's launches counted from zero.
 
 The model is the reference's UNC DMPNN run.sh configuration (n_hidden 50,
 n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
@@ -256,7 +280,7 @@ n_layers 2, negative_sample 5, graph_batch_size 10000, graph_split_size
 graph of PubMed's published size (63,109 nodes, 244,986 links, 10 link
 types) made from --seed, with random weights from a CPU torch.Generator.
 
-Phases 7-9 and 11-19 print {"paths": {...}} before the kernels line: the
+Phases 7-9 and 11-20 print {"paths": {...}} before the kernels line: the
 kernel launches of each of their training runs, counted from zero just
 before it and read just after (phases 18-19's per rank, rank 0's
 printed).
@@ -286,7 +310,10 @@ their launches per EP rank and step as "launches_ep_rank_step"; phase
 rank and step as "launches_halo_rank_step"; K3 at phase 18's E4 rank
 shapes as "_ep_layer" and "_halo_layer", its launches per
 demonstration-layer step on rank 0 as "launches_ep_layer_step" and in
-halo_bench's run as "launches_halo_bench_rank0"), K4 at
+halo_bench's run as "launches_halo_bench_rank0"; K3 at phase 20's helper
+shapes as "_flat_sum", "_softmax_denom_flagship", "_softmax_denom_flat"
+and their "_bfloat16" twins, each helper's launches per call and per
+backward as "launches_helpers"), K4 at
 the
 bench's largest size (and at the smallest as "_64x4096": event, device,
 plain and bound times).
@@ -322,9 +349,14 @@ from dualmessagepassing_tpu_torch.data.lrp import (count_perms,
 from dualmessagepassing_tpu_torch.data.synthetic import (
     generate_community_graph, generate_dataset, generate_large_graph)
 from dualmessagepassing_tpu_torch.bench import halo_bench, partition_bench
+from dualmessagepassing_tpu_torch.bench import scm_learn_spread as learn_spread
 from dualmessagepassing_tpu_torch.constants import LEAKY_RELU_A
 from dualmessagepassing_tpu_torch.dryrun import (_flagship_config,
                                                  dryrun_multichip)
+from dualmessagepassing_tpu_torch.examples import edge_parallel as ex_ep
+from dualmessagepassing_tpu_torch.examples import multichip_dp as ex_dp
+from dualmessagepassing_tpu_torch.examples import performance_levers as ex_pl
+from dualmessagepassing_tpu_torch.examples import quickstart_scm as ex_qs
 from dualmessagepassing_tpu_torch.parallel.edge_partition import (
     edge_parallel_dmp_apply, edge_parallel_grads, init_edge_parallel_params,
     make_edge_parallel_train_step, pad_to_multiple, shard_flat_edges)
@@ -345,6 +377,7 @@ from dualmessagepassing_tpu_torch.ops import scatter_kernels as sc
 from dualmessagepassing_tpu_torch.ops import segment_kernel as sk
 from dualmessagepassing_tpu_torch.ops.build import (ALL_CUDA_KERNELS,
                                                     build_cuda_kernels)
+from dualmessagepassing_tpu_torch.ops.spectral import edge_norm_device
 from dualmessagepassing_tpu_torch.parallel import dist, dp
 from dualmessagepassing_tpu_torch.gates import northstar
 from dualmessagepassing_tpu_torch.parallel.dist import (all_gather_rows,
@@ -433,9 +466,13 @@ SCM_BSZ, SCM_INFER_BSZ = 128, 512
 # real edges per pair: graph 256 and pattern 8, each with its reversed
 # copy (bench.py:770)
 SCM_EDGES_PER_PAIR = 2 * 256 + 2 * 8
-# the learning run: an ER set at the scm_er_counting sizes
-# (tests/test_regression.py:64-66), the flagship's widths and options
-SCM_LEARN = dict(n_train=512, n_dev=128, bsz=32, epochs=4, lr=1e-3)
+# the learning run (bench/scm_learn_spread.py): an ER set at the
+# scm_er_counting sizes, the flagship's widths and options, scm_train's
+# default schedule (cosine with its derived warmup): at a constant rate
+# the loss reaches a plateau by epoch 1, where one epoch's mean moves by
+# up to 2 with the last bits of the weights (K3's atomic order), and
+# "falling" would be a draw
+SCM_LEARN = learn_spread.LEARN
 SCM_LOSS = dict(bp_loss="MSE", neg_slope=0.2, match_loss_w=0.1,
                 match_reg_w=0.05, rep_reg_w=1e-4)
 # SCM outputs and gradients, card vs CPU: f32 — outputs within 1e-4 of
@@ -522,8 +559,9 @@ ATTN_KW = dict(pred_infer_steps=1, pred_num_heads=4)
 # every net's train step and eval forward run on the card, timed by
 # events with their K3 launches checked; those of ATTN_TIMED are also
 # profiled (torch.profiler: device ms and kernel shares; a profile costs
-# seconds of host time, which the run's limit does not leave for all)
-ATTN_TIMED = (("MeanAttnPredictNet", "DMPNN"), ("MeanAttnPredictNet", "CNN"))
+# seconds of host time, ~20 s a network, which the run's limit does not
+# leave for all)
+ATTN_TIMED = (("MeanAttnPredictNet", "DMPNN"),)
 # the device kernels of the sparsemax's sort and cumsum (torch.sort's and
 # torch.cumsum's kernels, matched by name)
 SPARSEMAX_KERNELS = ("sort", "scan")
@@ -2172,63 +2210,35 @@ def scm_timing(cfg, dev, seed, train_bszs=(SCM_BSZ,),
 
 
 def scm_learning_run(dev, seed) -> dict:
-    """The user's SCM path on the card, counted from zero: generate_dataset
-    (an ER set at the scm_er_counting sizes, reversed edges added), the
-    flagship's widths and options, BucketSampler, make_train_step and
-    train_epoch for SCM_LEARN["epochs"] epochs, then make_eval_step and
-    evaluate_epoch. The losses must be finite and fall; K3's launches
+    """The user's SCM path on the card, counted from zero
+    (bench/scm_learn_spread.learning_run): generate_dataset (an ER set at
+    the scm_er_counting sizes, reversed edges added), the flagship's
+    widths and options, BucketSampler, make_train_step and train_epoch
+    for SCM_LEARN["epochs"] epochs under scm_train's default
+    learning-rate schedule (derive_schedule_config), then make_eval_step
+    and evaluate_epoch. The losses must be finite and fall; K3's launches
     must equal the derived count of the steps and eval forwards."""
-    t0 = time.perf_counter()
-    n_tr, n_dev = SCM_LEARN["n_train"], SCM_LEARN["n_dev"]
-    data = generate_dataset(n_tr + n_dev, seed=seed, pv=3, pe=3, gv=8,
-                            ge=16, num_vlabels=2, num_elabels=2, p_v_max=4,
-                            p_e_max=4, g_v_max=8, g_e_max=16)
-    train_ds = GraphAdjDataset(data[:n_tr]).add_reversed_edges(2, 2)
-    dev_ds = GraphAdjDataset(data[n_tr:]).add_reversed_edges(2, 2)
-    gen_s = time.perf_counter() - t0
-    cfg = scm_flagship_config().replace(
-        max_ngv=8, max_ngvl=2, max_nge=32, max_ngel=4, max_npv=4,
-        max_npvl=2, max_npe=8, max_npel=4)
-    model = build_model(cfg, device=dev, seed=seed)
-    step = scm_driver.make_train_step(
-        model, scm_driver.make_optimizer(model.parameters(),
-                                         SCM_LEARN["lr"]),
-        return_weights="nodeedge")
-    config = {"train_epochs": SCM_LEARN["epochs"], "neg_pred_slp": 0.2,
-              "match_loss_w": 0.1, "pred_return_weights": "nodeedge"}
-    bsz = SCM_LEARN["bsz"]
-    sampler = BucketSampler(train_ds.sizes(), ["g_len", "p_len"], bsz,
-                            shuffle=True, seed=seed)
-    dev_sampler = BucketSampler(dev_ds.sizes(), ["g_len", "p_len"], bsz)
-    losses = []
     sk.reset_launch_counts()
-    t1 = time.perf_counter()
-    for epoch in range(SCM_LEARN["epochs"]):
-        sampler.set_epoch(epoch)
-        rec = scm_driver.train_epoch(step, train_ds, sampler, config, epoch)
-        losses.append(rec["total"])
-        print(f"scm learn epoch {epoch}: loss {rec['total']:.6f}, "
-              f"{len(sampler)} steps, {rec['edges_per_sec']:.4g} edges/s "
-              "(host wall clock)")
-    results = scm_driver.evaluate_epoch(scm_driver.make_eval_step(model),
-                                        dev_ds, dev_sampler, "nodeedge")
+    run = learn_spread.learning_run(dev, seed, log=print)
     launches = dict(sk.LAUNCHES)
-    wall = time.perf_counter() - t1
-    steps = SCM_LEARN["epochs"] * len(sampler)
-    want = (steps * scm_driver.auto_chunks(bsz) * k3_launches(cfg, True)
-            + len(dev_sampler) * k3_launches(cfg, False))
+    losses, results, steps = run["losses"], run["results"], run["steps"]
+    want = (steps * scm_driver.auto_chunks(SCM_LEARN["bsz"])
+            * k3_launches(learn_spread.learning_config(), True)
+            + run["eval_batches"]
+            * k3_launches(learn_spread.learning_config(), False))
     check(launches == {"segment_sum_unsorted": want},
           f"SCM learning run launched {launches}, expected K3 x {want}")
-    check(bool(np.isfinite(losses).all()) and losses[-1] < min(losses[:2]),
+    check(learn_spread.falling(losses),
           f"SCM learning run: losses {losses} not finite and falling")
     scores = {k: results[k] for k in ("MAE", "MSE", "RMSE", "AUC", "MNED",
                                       "MEED")}
     check(all(np.isfinite(v) for v in scores.values()),
           f"SCM evaluation: {scores}")
-    print(f"scm learn: {n_tr} train / {n_dev} dev ER pairs made in "
-          f"{gen_s:.2f} s ({'native' if native.available() else 'numpy'} "
-          f"subiso); {steps} steps and {len(dev_sampler)} eval batches in "
-          f"{wall:.1f} s; dev " + ", ".join(
+    print(f"scm learn: {SCM_LEARN['n_train']} train / "
+          f"{SCM_LEARN['n_dev']} dev ER pairs made in {run['gen_s']:.2f} s "
+          f"({'native' if native.available() else 'numpy'} subiso); {steps} "
+          f"steps and {run['eval_batches']} eval batches in "
+          f"{run['seconds']:.1f} s; dev " + ", ".join(
               f"{k} {v:.4f}" for k, v in scores.items())
           + f"; eval forward {1e3 * results['time_avg']:.4f} ms per pair; "
           f"K3 launches {launches}")
@@ -3078,7 +3088,8 @@ def dist_rank(world, spec) -> dict:
     """One rank of phase 18: the DP steps, the EP gradients and step,
     (spec["halo"]) phase 19's halo gradients, step and collectives on
     the same batch, (spec["runs"]) train_epoch and train_unc over the
-    ranks, and the E4 work (e4_rank: spec["e4"])."""
+    ranks, the E4 work (e4_rank: spec["e4"]) and phase 20's examples
+    (examples_rank: spec["examples"])."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = world.device
@@ -3092,6 +3103,7 @@ def dist_rank(world, spec) -> dict:
         out["train_unc"] = dist_train_unc(world, spec["runs"]["train_unc"],
                                           dev)
     out["e4"] = e4_rank(world, spec["e4"], dev)
+    out["examples"] = examples_rank(world, spec["examples"])
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -3274,7 +3286,7 @@ def hold_against_one_rank(tag, key, runs, ref, near, models, sub, dev,
     return worst
 
 
-def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
+def phase_dist(dev, seed, graph, triplets, kernels, examples) -> tuple:
     """Phase 18: data-parallel SCM training (the flagship, bsz 128: 64
     pairs a rank) and edge-partitioned UNC training (the PubMed batch,
     DMPNN at full width, one step of each other backbone), each as two
@@ -3289,8 +3301,10 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
     counted from zero; and the E4 work in the same processes (e4_rank,
     hold_e4): the demonstration layer and bench/halo_bench.py at E4's
     size over the two gloo ranks, dryrun_multichip over both worlds,
-    bench/partition_bench.py on the host. Two ranks sharing one card
-    time no scale-out: their step times are printed as what they are.
+    bench/partition_bench.py on the host; and phase 20's examples over
+    both worlds (examples_rank on `examples`, which phase 20 holds). Two
+    ranks sharing one card time no scale-out: their step times are
+    printed as what they are.
     -> (results, paths, kernel rows). `kernels` are dist_kernels' rows
     of the same data (dist_inputs) with e4_kernels', which main measures
     early in the run: late in a long process CUPTI has dropped whole
@@ -3347,7 +3361,8 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
         num_elabels=2, p_v_max=4, p_e_max=4, g_v_max=8,
         g_e_max=16)).add_reversed_edges(2, 2)
     spec = dict(dp=dict(model=dp_model, batch=dp_batch),
-                ep=dict(padded=padded, models=models, near=near))
+                ep=dict(padded=padded, models=models, near=near),
+                examples=examples)
     runs = dict(dp_epoch=dict(cfg=learn_cfg, data=data, seed=seed + 6),
                 train_unc=dict(model=models["DMPNN"],
                                triplets=triplets[:BACKBONE_LINKS],
@@ -3491,8 +3506,10 @@ def phase_dist(dev, seed, graph, triplets, kernels) -> tuple:
     print(f"dist: phase 18 took {time.perf_counter() - t0:.1f} s")
     refs = dict(ref_ep=ref_ep, near=near, models=models, padded=padded,
                 one_rank_ms=ref_ep_time, nccl=nccl)
-    return dict(worst=worst, kernels=kernels, launches=launches,
-                refs=refs), paths
+    return dict(worst=worst, kernels=kernels, launches=launches, refs=refs,
+                examples={"gloo 2 ranks": [r["examples"] for r in gloo],
+                          "nccl 1 rank": [r["examples"] for r in nccl]}
+                ), paths
 
 # --- phase 18's E4 work: the demonstration layer, the halo library, the
 # dry run -------------------------------------------------------------------
@@ -4104,9 +4121,511 @@ def phase_halo(dev, seed, triplets, refs, kernels) -> tuple:
                 launches_step=g0["grads"]["DMPNN"][False][2]), paths
 
 
+# --- phase 20: the helpers off every path and the examples ------------------
+
+# K3 launches of one call of each helper and of its backward
+# (ops/scatter.py): the flat sum's forward; the softmax's sum of the
+# exponentials, then the backward of its two gathers
+HELPER_K3 = {"scatter_sum_flat": (1, 0), "scatter_max_edges": (0, 0),
+             "segment_softmax_edges": (1, 2), "edge_norm_device": (0, 0)}
+# the flat graph of scatter_sum_flat's docstring (the JAX package's
+# ops/scatter.py:131-139, the kernel bench's largest size), one batch of
+# [1, E]; every HELPER_WRAP-th receiver r is given as r - V, which JAX's
+# indexing wraps to r, and every HELPER_PAD-th edge is masked
+HELPER_FLAT = dict(v=82465, e=497664, h=64)
+HELPER_WRAP, HELPER_PAD = 16, 64
+
+
+def helper_inputs(seed) -> dict:
+    """Phase 20's two sizes, on the CPU: the flagship's graph side (bsz
+    128, E 512 with reversed edges, V 64: scm_make_batch's receivers and
+    mask) and HELPER_FLAT; per size the messages [B, E, H = 64], the
+    scores [B, E] and the in-degrees [B, V] of the real edges."""
+    rng = np.random.default_rng(seed)
+    _, graph = scm_make_batch(SCM_BSZ, 8, 8, 64, 256, 16, 16, seed=seed)
+    v, e = HELPER_FLAT["v"], HELPER_FLAT["e"]
+    recv = rng.integers(0, v, e)
+    recv[::HELPER_WRAP] -= v
+    mask = np.ones(e, bool)
+    mask[1::HELPER_PAD] = False
+    sizes = {"flagship": dict(v=64, recv=graph.receivers.long(),
+                              mask=graph.edge_mask),
+             "flat": dict(v=v, recv=torch.from_numpy(recv)[None],
+                          mask=torch.from_numpy(mask)[None])}
+    for s in sizes.values():
+        b, e = s["recv"].shape
+        s["msg"] = torch.from_numpy(
+            rng.normal(size=(b, e, HELPER_FLAT["h"])).astype(np.float32))
+        s["scores"] = torch.from_numpy(
+            rng.normal(size=(b, e)).astype(np.float32))
+        idx, inside = scm_ops.jax_index(s["recv"], s["v"])
+        s["deg"] = scm_ops.bincount_batched(idx, inside & s["mask"], s["v"])
+    return sizes
+
+
+def helper_calls(s, dev) -> dict:
+    """name -> (the helper as a function of its float input, that input
+    on the CPU, a function of the input on `dev` that returns one PyTorch
+    call computing the same function (the real rows selected, the index
+    expanded, before it; None where there is none), (the float input's
+    and output's elements, the other bytes the function must move)) at
+    one size, the indices on `dev`. The flat sum takes the batch
+    flattened to B*V rows (ops/scatter.batch_index: receiver b*V + r,
+    B*V where JAX's indexing drops r)."""
+    v = s["v"]
+    b, e = s["recv"].shape
+    h = HELPER_FLAT["h"]
+    recv, mask = s["recv"].to(dev), s["mask"].to(dev)
+    flat, inside = scm_ops.batch_index(recv, v)
+    fmask = mask.reshape(-1)
+    rows = b * v
+    keep = inside.reshape(-1) & fmask
+    idx_keep = flat[keep]
+    idx_max = flat[:, None].expand(-1, h).contiguous()
+
+    def lib_sum(x):
+        rows_x = x[keep]
+        return lambda: torch.zeros(rows, h, dtype=x.dtype,
+                                   device=dev).index_add_(0, idx_keep,
+                                                          rows_x)
+
+    def lib_max(x):
+        # one more row takes the dropped receivers (index B*V)
+        flat_x = x.reshape(b * e, h)
+        return lambda: torch.full((rows + 1, h), -1e30, dtype=x.dtype,
+                                  device=dev).scatter_reduce_(
+            0, idx_max, flat_x, "amax", include_self=True)
+
+    return {
+        "scatter_sum_flat": (
+            lambda x: scm_ops.scatter_sum_flat(x, flat, fmask, rows),
+            s["msg"].reshape(b * e, h), lib_sum, (b * e * h, rows * h,
+                                                  b * e * 9)),
+        "scatter_max_edges": (
+            lambda x: scm_ops.scatter_max_edges(x, recv, mask, v),
+            s["msg"], lib_max, (b * e * h, rows * h, b * e * 9)),
+        "segment_softmax_edges": (
+            lambda x: scm_ops.segment_softmax_edges(x, recv, mask, v),
+            s["scores"], None, (b * e, b * e, b * e * 9)),
+        "edge_norm_device": (
+            lambda x: edge_norm_device(x, recv, False), s["deg"], None,
+            (rows, b * e, b * e * 8)),
+    }
+
+
+def helper_run(fn, x, dtype, grad, dev=None, g_seed=0) -> tuple:
+    """fn on x cast to dtype (on dev, else the CPU), with (grad) a backward
+    of a fixed random cotangent -> (output, input gradient or None, K3
+    launches of the forward, of the backward: LAUNCHES read after
+    each), float32 on the CPU."""
+    x = x.to(dev or "cpu", dtype, copy=True).requires_grad_(grad)
+    sk.reset_launch_counts()
+    y = fn(x)
+    if dev is not None:
+        torch.cuda.synchronize()
+    fwd = dict(sk.LAUNCHES)
+    g, bwd = None, {}
+    if grad:
+        gen = torch.Generator().manual_seed(g_seed)
+        ct = torch.randn(y.shape, generator=gen).to(y.device, dtype)
+        sk.reset_launch_counts()
+        y.backward(ct)
+        if dev is not None:
+            torch.cuda.synchronize()
+        bwd = dict(sk.LAUNCHES)
+        g = x.grad.float().cpu()
+    return y.detach().float().cpu(), g, fwd, bwd
+
+
+def phase_helpers(dev, seed) -> dict:
+    """Phase 20 (a), early in the run (as phase 18's kernels): each helper
+    of ops/scatter.py and ops/spectral.py at helper_inputs' two sizes, f32
+    and bf16, on the card against its plain version on the CPU: the
+    output and (but edge_norm_device) the input gradient under phase 11's
+    bounds (f32: the flat sum K3's, 2**-20 of each row's absolute sum,
+    the other outputs SCM_F32_OUT_REL of their largest magnitude, the
+    gradients TRAIN_F32_REL + TRAIN_F32_GLOBAL of theirs; bf16: the amp
+    rule against the CPU's f32 result); K3's launches of each call and
+    of its backward exactly HELPER_K3's; each call timed (CUDA events,
+    device ms) beside one PyTorch call of the same function (index_add_,
+    scatter_reduce amax; none for the softmax and the norm) and the bytes
+    it must move over 3.35 TB/s. Then K3 at its new call shapes against
+    its plain version (k3_timed): the flat sum's (HELPER_FLAT, H = 64) and
+    the softmax denominator's (one column into B*V rows, both sizes), f32
+    and bf16. -> (K3 rows by (shape, dtype), the helpers' rows, K3's
+    launches of each call and its backward by helper, size and dtype,
+    as this run counted them)."""
+    t0 = time.perf_counter()
+    rows, worst, launches = [], 0.0, {}
+    sizes = helper_inputs(seed)
+    for size, s in sizes.items():
+        on_cpu = helper_calls(s, "cpu")
+        for name, (fn, x, lib, (n_in, n_out, other)) in helper_calls(
+                s, dev).items():
+            cpu_fn = on_cpu[name][0]
+            grad = name != "edge_norm_device"
+            ref = helper_run(cpu_fn, x, torch.float32, grad)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype)[6:]
+                got = helper_run(fn, x, dtype, grad, dev)
+                cpu = ref if dtype == torch.float32 else helper_run(
+                    cpu_fn, x, dtype, grad)
+                want = (k3_dict(HELPER_K3[name][0]),
+                        k3_dict(HELPER_K3[name][1]))
+                check(got[2:] == want and cpu[2:] == ({}, {}),
+                      f"helper {name} {size} {dname}: K3 launched "
+                      f"{got[2:]} (forward, backward), expected {want}")
+                counted = [c.get("segment_sum_unsorted", 0)
+                           for c in got[2:]]
+                launches[f"{name}_{size}_{dname}"] = counted
+                shares = []
+                for i, what in ((0, "output"), (1, "gradient")):
+                    if got[i] is None:
+                        continue
+                    check(bool(torch.isfinite(got[i]).all()),
+                          f"helper {name} {size} {dname}: non-finite {what}")
+                    err = (got[i] - ref[i]).abs()
+                    scale = ref[i].abs().max().item()
+                    if dtype == torch.bfloat16:
+                        bound = (TRAIN_AMP_FACTOR
+                                 * (cpu[i] - ref[i]).abs().max().item()
+                                 + 2.0 ** -8 * scale)
+                    elif i == 1:
+                        bound = (TRAIN_F32_REL + TRAIN_F32_GLOBAL) * scale
+                    elif name == "scatter_sum_flat":
+                        err = err / (K1_ABS_SUM_TOL * cpu_fn(x.abs())
+                                     ).clamp_min(1e-30)
+                        bound = 1.0
+                    else:
+                        bound = SCM_F32_OUT_REL * scale
+                    share = err.max().item() / bound if bound else 0.0
+                    check(share <= 1.0, f"helper {name} {size} {dname} "
+                          f"{what}: at {share:.3f} of its bound")
+                    shares.append(share)
+                worst = max(worst, *shares)
+                xc = x.to(dev, dtype)
+                with torch.inference_mode():
+                    ms, dms = library_times(lambda: fn(xc),
+                                            f"helper {name} {size}")
+                    lms = ldms = None
+                    if lib is not None:
+                        lms, ldms = library_times(lib(xc),
+                                                  f"library {name} {size}")
+                nbytes = (n_in + n_out) * dtype.itemsize + other
+                row = dict(name=name, size=size, dtype=dname,
+                           launches_fwd=counted[0],
+                           launches_bwd=counted[1], err_share=shares,
+                           ms=ms, device_ms=dms, library_ms=lms,
+                           library_device_ms=ldms, bound_ms=hbm_ms(nbytes),
+                           bound_by="bytes")
+                rows.append(row)
+                print(f"helper {name} {size} {dname}: card vs cpu "
+                      + "/".join(f"{r:.3f}" for r in shares)
+                      + " of the bound (output/gradient); K3 launches "
+                      f"{counted} (forward, backward); {ms:.4f} ms "
+                      f"event, {dms} ms device; library {lms} / {ldms}; "
+                      f"bound {row['bound_ms']:.4f} ms")
+    # K3 at its new call shapes
+    rng = np.random.default_rng(seed + 1)
+    k3 = {}
+    for size, s in sizes.items():
+        b = s["recv"].shape[0]
+        flat, inside = scm_ops.batch_index(s["recv"], s["v"])
+        # the flat size's one batch: its real rows, the others dropped
+        keep = torch.where((inside & s["mask"]).reshape(-1), flat,
+                           b * s["v"]).to(dev)
+        flat = flat.to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype)[6:]
+            k3[(f"softmax_denom_{size}", dname)] = k3_timed(
+                f"softmax denominator {size}", flat, b * s["v"], 1, dtype,
+                dev, rng)
+            if size == "flat":
+                k3[("flat_sum", dname)] = k3_timed(
+                    "flat sum", keep, s["v"], HELPER_FLAT["h"], dtype, dev,
+                    rng)
+    print(json.dumps({"helpers": rows}))
+    print(f"helpers: phase 20 (a) took {time.perf_counter() - t0:.1f} s; "
+          f"worst at {worst:.3f} of its bound")
+    return dict(k3=k3, rows=rows, launches=launches)
+
+
+def unc_example_launches(steps: int, layers: int = 1) -> dict:
+    """K1's and K2's launches of performance_levers' train_unc: `steps`
+    train steps and its one export request (150 links in requests of 4
+    * 50), each a forward of `layers` layers."""
+    n_req = -(-150 // (4 * ex_pl.UNC_KW["graph_batch_size"]))
+    return {"segment_sum_sorted:fwd": layers * (steps + n_req),
+            "segment_sum_sorted:bwd": 2 * layers * steps,
+            "gather_rows_sorted:fwd": layers * (steps + n_req),
+            "gather_rows_sorted:bwd": layers * steps}
+
+
+def hold_step(label, got, cpu, amp_cpu=None) -> float:
+    """An AdamW step's gradients (got["grads"]) and the parameters after
+    it (got["params"], or the state's) against the CPU's float32 step
+    (cpu). Float32: the gradients under phase 11's f32 rule, the
+    parameters within 1e-6 where the CPU's gradient is above 1e-3 of its
+    tensor's largest: there the first step is -lr (g / (|g| + eps) + wd
+    p); a gradient that is rounding noise steps either way. amp (amp_cpu:
+    the CPU's amp step): the gradients under phase 5's amp rule (per
+    tensor at most TRAIN_AMP_FACTOR times the CPU amp's distance to cpu
+    plus 2**-8 of the tensor's largest, TRAIN_AMP_FACTOR times it in L2
+    over all), the parameters within 1e-6 of amp_cpu's where amp_cpu's
+    gradient is above twice its tensor's bound (there both gradients
+    have one sign). -> the share of the parameters held."""
+    gmax = max(float(np.abs(g).max()) for g in cpu["grads"].values())
+    after = "params" if "params" in cpu else "state"
+    held = total = 0
+    for k, g in cpu["grads"].items():
+        gscale = float(np.abs(g).max())
+        got_g = got["grads"][k]
+        if amp_cpu is None:
+            bound = TRAIN_F32_REL * gscale + TRAIN_F32_GLOBAL * gmax
+            ref, sure = cpu, np.abs(g) > 1e-3 * gscale
+        else:
+            amp_g = amp_cpu["grads"][k]
+            bound = (TRAIN_AMP_FACTOR * float(np.abs(amp_g - g).max())
+                     + 2.0 ** -8 * gscale)
+            ref, sure = amp_cpu, np.abs(amp_g) > 2 * bound
+        err = float(np.abs(got_g - g).max())
+        check(bool(np.isfinite(got_g).all()) and err <= bound,
+              f"{label}: gradient {k} off the CPU's ({err:.3e} over "
+              f"{bound:.3e})")
+        check(np.allclose(got[after][k][sure], ref[after][k][sure], rtol=0,
+                          atol=1e-6), f"{label}: {k} after the AdamW step")
+        held += int(sure.sum())
+        total += sure.size
+    if amp_cpu is not None:
+        def l2(a):
+            return sum(float(((a["grads"][k] - g) ** 2).sum())
+                       for k, g in cpu["grads"].items()) ** 0.5
+        check(l2(got) <= TRAIN_AMP_FACTOR * l2(amp_cpu),
+              f"{label}: amp gradient L2 distance {l2(got):.3e} vs the "
+              f"CPU amp's {l2(amp_cpu):.3e}")
+    return held / total
+
+
+def hold_unc(label, got, amp_cpu, f32_cpu) -> float:
+    """performance_levers' train_unc with amp (got) against the same run
+    on the CPU: its steps and coverage amp_cpu's, each epoch's loss
+    within 1e-3 relative of amp_cpu's (phase 5's amp loss bound), the
+    embeddings finite, [30, 8] and within phase 5's amp rule of the CPU
+    float32 run's (f32_cpu): TRAIN_AMP_FACTOR times amp_cpu's distance
+    plus 2**-8 of their largest magnitude. -> the embeddings' error over
+    its bound."""
+    check(got["steps"] == amp_cpu["steps"]
+          and got["coverage"] == amp_cpu["coverage"]
+          and len(got["losses"]) == len(amp_cpu["losses"]),
+          f"{label}: {got['steps']} steps, coverage {got['coverage']}, "
+          f"{len(got['losses'])} epochs; the CPU's {amp_cpu['steps']}, "
+          f"{amp_cpu['coverage']}, {len(amp_cpu['losses'])}")
+    for i, (a, b) in enumerate(zip(got["losses"], amp_cpu["losses"])):
+        check(np.isfinite(a) and abs(a - b) <= 1e-3 * abs(b),
+              f"{label}: epoch {i} loss {a} vs the CPU's {b}")
+    emb, ref = got["emb"], f32_cpu["emb"]
+    check(emb.shape == (ex_pl.UNC_NODES, 8) and np.isfinite(emb).all(),
+          f"{label}: embeddings of shape {emb.shape} or not finite")
+    bound = (TRAIN_AMP_FACTOR * float(np.abs(amp_cpu["emb"] - ref).max())
+             + 2.0 ** -8 * float(np.abs(ref).max()))
+    err = float(np.abs(emb - ref).max())
+    check(err <= bound, f"{label}: embeddings {err:.3e} from the CPU "
+          f"float32 run's, bound {bound:.3e}")
+    return err / bound
+
+
+def examples_rank(world, spec) -> dict:
+    """Phase 20's work in phase 18's ranks: the examples that run over
+    ranks as this rank (multichip_dp's step on spec["state_dict"],
+    edge_parallel's forward, performance_levers' owner-sharded
+    train_unc), each run's launches counted from zero; over gloo also
+    the owner-sharded train_unc's references, the same ranks on the CPU
+    in float32 and amp ("halo_cpu")."""
+    runs = (("dp", lambda: ex_dp.dp_step(world,
+                                         state_dict=spec["state_dict"])),
+            ("ep", lambda: ex_ep.ep_forward(world)),
+            ("halo", lambda: ex_pl.unc_train(world)))
+    out = {}
+    for name, run in runs:
+        sk.reset_launch_counts()
+        out[name] = run()
+        torch.cuda.synchronize()
+        out[name]["launches"] = dict(sk.LAUNCHES)
+    if world.backend == "gloo":
+        on_cpu = dist.World(world.rank, world.size, torch.device("cpu"),
+                            world.backend)
+        out["halo_cpu"] = {amp: ex_pl.unc_train(on_cpu, amp=amp)
+                           for amp in (False, True)}
+    return out
+
+
+def halo_cpu_one_rank() -> dict:
+    """performance_levers' owner-sharded train_unc over a world of one
+    rank on the CPU, float32 and amp: the NCCL world's reference, in this
+    process (a gloo group of one, left before returning)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        world = dist.init_world(0, 1, "gloo", "cpu",
+                                os.path.join(tmp, "rdv"))
+        try:
+            return {amp: ex_pl.unc_train(world, amp=amp)
+                    for amp in (False, True)}
+        finally:
+            torch.distributed.destroy_process_group()
+
+
+def hold_rank_examples(results, sd) -> dict:
+    """Each world's examples_rank results (label -> by rank) against the
+    same examples on the CPU: the data-parallel loss within 1e-5
+    relative of the one-device step's, its gradient and the parameters
+    after it as hold_step holds them, K3 k3_launches a rank; the
+    edge-partitioned forward's node rows and this rank's edge rows
+    within phase 5's f32 bound of the one-rank forward's, K3 1 + 2
+    (out-degrees, the two layers' sums) a rank; the owner-sharded
+    train_unc as hold_unc holds it against the same world size on the
+    CPU (the gloo ranks' own halo_cpu, the NCCL world's
+    halo_cpu_one_rank), its embeddings equal over the ranks, K1's and
+    K2's launches unc_example_launches' -> the paths entries."""
+    paths = {}
+    for label, ranks in results.items():
+        n = len(ranks)
+        one = ex_dp.dp_step(None, "cpu", n, sd)
+        # E = 4,096 splits over 1 and 2 ranks: no pad edge
+        ep_one = ex_ep.ep_forward(None, device="cpu")
+        want_dp = k3_dict(k3_launches(ex_qs.CONFIG, train=True))
+        want_ep = k3_dict(1 + ex_ep.LAYERS)
+        blk = len(ep_one["edge_out"]) // n
+        refs = [r.get("halo_cpu") for r in ranks]
+        if refs[0] is None:
+            check(n == 1, f"examples over {label}: no CPU reference")
+            refs = [halo_cpu_one_rank()]
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            d, e, h = res["dp"], res["ep"], res["halo"]
+            check(d["launches"] == want_dp and e["launches"] == want_ep,
+                  f"example {label} rank {r}: K3 launched {d['launches']} "
+                  f"(dp), {e['launches']} (ep); expected {want_dp}, "
+                  f"{want_ep}")
+            check(abs(d["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"]),
+                  f"example multichip_dp {label} rank {r}: loss "
+                  f"{d['loss']} vs {one['loss']} on the CPU")
+            hold_step(f"example multichip_dp {label} rank {r}", d, one)
+            pairs = (("node", e["node_out"], ep_one["node_out"]),
+                     ("edge", e["edge_out"],
+                      ep_one["edge_out"][r * blk:(r + 1) * blk]))
+            gmax = max(float(np.abs(w).max()) for _, _, w in pairs)
+            for what, got, want in pairs:
+                bound = (TRAIN_F32_REL * float(np.abs(want).max())
+                         + TRAIN_F32_GLOBAL * gmax)
+                err = float(np.abs(got - want).max())
+                check(err <= bound, f"example edge_parallel {label} rank "
+                      f"{r} {what}: err {err:.3e} exceeds {bound:.3e}")
+            # every rank runs rank 0's steps; rank 0 counts them
+            want_unc = unc_example_launches(ranks[0]["halo"]["steps"])
+            check(h["launches"] == want_unc
+                  and np.array_equal(h["emb"], ranks[0]["halo"]["emb"]),
+                  f"example performance_levers halo {label} rank {r}: "
+                  f"launched {h['launches']} (expected {want_unc}), or its "
+                  "embeddings differ from rank 0's")
+            ref = refs[min(r, len(refs) - 1)]
+            worst = max(worst, hold_unc(
+                f"example performance_levers halo {label} rank {r}", h,
+                ref[True], ref[False]))
+        tag = label.split()[0]
+        for name in ("dp", "ep", "halo"):
+            paths[f"example_{name}_{tag}_rank0"] = ranks[0][name]["launches"]
+        print(f"examples over {label}: multichip_dp loss "
+              f"{ranks[0]['dp']['loss']:.6f} (CPU one device "
+              f"{one['loss']:.6f}); edge_parallel node and edge rows within "
+              f"phase 5's bound; halo train_unc {ranks[0]['halo']['steps']} "
+              f"steps, coverage {ranks[0]['halo']['coverage']:.2f}, losses "
+              f"{ranks[0]['halo']['losses']} (CPU at {n} rank(s) "
+              f"{refs[0][True]['losses']}), embeddings at {worst:.3f} of "
+              "the amp bound")
+    return paths
+
+
+def phase_examples(dev, seed, dist_results) -> dict:
+    """Phase 20 (b): quickstart_scm and performance_levers' SCM step (f32
+    and amp) and single-device train_unc in this process on the card,
+    against the same on the CPU: pred_c within SCM_F32_OUT_REL of its
+    largest magnitude, the losses 1e-5 relative (f32) or under the amp
+    rule, the gradients and the parameters after the step as hold_step
+    holds them (the SCM step's amp run under its amp rule); K3's
+    launches k3_launches' (the SCM step's 4 microbatches each a forward
+    and a backward); train_unc's K1/K2 launches, and its losses and
+    embeddings as hold_unc holds them. Weights: scm_model's perturbed
+    seed weights. Then the ranks' examples (phase 18's spawns:
+    hold_rank_examples). -> the paths entries."""
+    t0 = time.perf_counter()
+    paths = {}
+    sd = scm_model(ex_qs.CONFIG, seed).state_dict()
+    cpu = ex_qs.main("cpu", sd)
+    sk.reset_launch_counts()
+    card = ex_qs.main(str(dev), sd)
+    paths["example_quickstart_scm"] = dict(sk.LAUNCHES)
+    want = k3_dict(k3_launches(ex_qs.CONFIG, train=False)
+                   + k3_launches(ex_qs.CONFIG, train=True))
+    check(paths["example_quickstart_scm"] == want,
+          f"example quickstart_scm: K3 launched "
+          f"{paths['example_quickstart_scm']}, expected {want}")
+    scale = float(np.abs(cpu["pred_c"]).max())
+    check(float(np.abs(card["pred_c"] - cpu["pred_c"]).max())
+          <= SCM_F32_OUT_REL * scale and scale > 0
+          and abs(card["loss"] - cpu["loss"]) <= 1e-5 * abs(cpu["loss"]),
+          f"example quickstart_scm: pred_c {card['pred_c'].ravel()} or loss "
+          f"{card['loss']} vs the CPU's {cpu['pred_c'].ravel()}, "
+          f"{cpu['loss']}")
+    hold_step("example quickstart_scm", card, cpu)
+    print(f"example quickstart_scm: pred_c {card['pred_c'].ravel()}, loss "
+          f"{card['loss']:.6f} (CPU {cpu['loss']:.6f}), gradients and the "
+          f"step within bound; K3 {want}")
+
+    sd = scm_model(ex_pl.SCM_CONFIG, seed + 1).state_dict()
+    cpu = {amp: ex_pl.scm_amp_microbatched("cpu", sd, amp) for amp in
+           (False, True)}
+    want = k3_dict(4 * k3_launches(ex_pl.SCM_CONFIG, train=True))
+    for amp in (False, True):
+        sk.reset_launch_counts()
+        got = ex_pl.scm_amp_microbatched(str(dev), sd, amp)
+        key = f"example_performance_levers_scm{'_amp' if amp else ''}"
+        paths[key] = dict(sk.LAUNCHES)
+        check(paths[key] == want, f"{key}: K3 launched {paths[key]}, "
+              f"expected {want}")
+        f32 = cpu[False]["losses"]
+        for k, ref in f32.items():
+            lc, lg = cpu[True]["losses"][k], got["losses"][k]
+            bound = (TRAIN_AMP_FACTOR * abs(lc - ref)
+                     + 2.0 ** -8 * abs(ref)) if amp else 1e-5 * abs(ref)
+            check(np.isfinite(lg) and abs(lg - ref) <= bound,
+                  f"{key}: loss {k} {lg} vs the CPU's {ref} (amp {lc})")
+        held = hold_step(key, got, cpu[False], cpu[True] if amp else None)
+        print(f"{key}, 4 microbatches: losses, gradients and the step "
+              f"within bound of the CPU's ({held:.3f} of the parameters "
+              f"held after it); K3 {paths[key]}")
+
+    cpu = {amp: ex_pl.unc_train(None, "cpu", amp) for amp in (False, True)}
+    sk.reset_launch_counts()
+    got = ex_pl.unc_train(None, dev)
+    paths["example_performance_levers_unc"] = dict(sk.LAUNCHES)
+    want = unc_example_launches(got["steps"])
+    check(paths["example_performance_levers_unc"] == want,
+          f"example performance_levers train_unc: launched "
+          f"{paths['example_performance_levers_unc']} (expected {want})")
+    share = hold_unc("example performance_levers train_unc", got,
+                     cpu[True], cpu[False])
+    print(f"example performance_levers train_unc, one device, amp: "
+          f"{got['steps']} steps, coverage {got['coverage']:.2f}, losses "
+          f"{got['losses']} (CPU {cpu[True]['losses']}), embeddings at "
+          f"{share:.3f} of the amp bound")
+    paths.update(hold_rank_examples(dist_results, scm_model(
+        ex_qs.CONFIG, seed).state_dict()))
+    print(f"examples: phase 20 (b) took {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
 def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
                  bench_launches, scm, scm_nets, scm_seq, scm_attn,
-                 scm_mem, scm_dist, unc_halo) -> dict:
+                 scm_mem, scm_dist, unc_halo, helpers) -> dict:
     """The {"kernels": [...]} line: per kernel its launches, error,
     times (event and device), its plain version's and one PyTorch
     call's (library), and its HBM bound."""
@@ -4227,6 +4746,13 @@ def kernels_line(timed, timed_k1, timed_sc, rows, train_launches,
         for k, v in e4.items() if k.endswith("_step")}
     k3["launches_halo_bench_rank0"] = e4["halo_bench"].get(
         "segment_sum_unsorted", 0)
+    # phase 20: the helpers' call shapes (the flagship's flat sum is the
+    # SCM step's shape above); launches per call and per backward
+    for (shape, dtype), t in helpers["k3"].items():
+        k3.update(times(t, f"_{shape}" + ("" if dtype == "float32"
+                                          else f"_{dtype}")))
+        k3["max_abs_err"] = max(k3["max_abs_err"], t["err"])
+    k3["launches_helpers"] = helpers["launches"]
     per_rank = scm_dist["launches"]["ep_step_per_rank"]
     hk = unc_halo["kernels"]
     halo_step = unc_halo["launches_step"]
@@ -4363,6 +4889,8 @@ def main() -> int:
     dist_k.update({f"K3_{k}": v for k, v in
                    e4_kernels(dev, args.seed + 56).items()})
     del dist_data
+    # phase 20 (a): the helpers and K3 at their shapes, as early
+    helpers = phase_helpers(dev, args.seed + 60)
 
     # phases 7-10: the other backbones, attributed inputs, supervised
     # training and the evaluation, each training run counted from zero
@@ -4420,8 +4948,10 @@ def main() -> int:
 
     # phase 18: data-parallel SCM and edge-partitioned UNC training over
     # torch.distributed, the runs over the ranks counted from zero
+    examples = dict(state_dict=scm_model(ex_qs.CONFIG,
+                                         args.seed + 61).state_dict())
     scm_dist, dist_paths = phase_dist(dev, args.seed + 50, graph, triplets,
-                                      dist_k)
+                                      dist_k, examples)
     paths.update(dist_paths)
     print(f"phase 18 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
@@ -4431,14 +4961,21 @@ def main() -> int:
     unc_halo, halo_paths = phase_halo(dev, args.seed + 50, triplets,
                                       scm_dist.pop("refs"), halo_k)
     paths.update(halo_paths)
-    print(json.dumps({"paths": paths}))
     print(f"phase 19 done; total {time.perf_counter() - t_start:.1f} s "
+          "after the device check")
+
+    # phase 20 (b): the examples on the card, those over ranks run in
+    # phase 18's spawns, each run counted from zero
+    paths.update(phase_examples(dev, args.seed + 61,
+                                scm_dist.pop("examples")))
+    print(json.dumps({"paths": paths}))
+    print(f"phase 20 done; total {time.perf_counter() - t_start:.1f} s "
           "after the device check")
 
     print(json.dumps(kernels_line(timed, timed_k1, timed_sc, rows,
                                   train_launches, bench_launches, scm,
                                   scm_nets, scm_seq, scm_attn, scm_mem,
-                                  scm_dist, unc_halo)))
+                                  scm_dist, unc_halo, helpers)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

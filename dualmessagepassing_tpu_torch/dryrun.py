@@ -43,7 +43,7 @@ import argparse
 import copy
 import os
 import tempfile
-from typing import Dict, Iterable, List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -54,6 +54,7 @@ from .models.scm_models import build_model
 from .parallel import dp
 from .parallel.dist import (World, all_reduce_grads, all_reduce_sum, launch,
                             launch_plan, rank_threads, split_rows)
+from .train.scm_driver import TorchOptimizer
 
 
 def _make_batch(bsz, pv, pe, gv, ge, nvl, nel, seed=0, add_rev=True):
@@ -106,31 +107,10 @@ def entry(device="cuda"):
     return forward, (pattern, graph)
 
 
-class _Optimizer:
-    """A torch optimizer over a parameter list with the interface the
-    port's train steps call (.params, zero_grad, step). Every parameter
-    is updated, as optax updates every leaf: one without a gradient
-    gets zeros first."""
-
-    def __init__(self, params: Iterable[torch.nn.Parameter], cls, **kw):
-        self.params = list(params)
-        self.opt = cls(self.params, **kw)
-
-    def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
-
-    @torch.no_grad()
-    def step(self) -> None:
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.opt.step()
-
-
-def _adam(model, lr: float) -> _Optimizer:
+def _adam(model, lr: float) -> TorchOptimizer:
     """optax.adam(lr)."""
-    return _Optimizer(model.parameters(), torch.optim.Adam, lr=lr,
-                      betas=(0.9, 0.999), eps=1e-8)
+    return TorchOptimizer(model.parameters(), torch.optim.Adam, lr=lr,
+                          betas=(0.9, 0.999), eps=1e-8)
 
 
 def _finite(name: str, losses) -> None:
@@ -153,8 +133,8 @@ def _dp_step(world: World) -> float:
     pattern, graph = _make_batch(bsz, 4, 8, 8, 16, 4, 4, add_rev=False)
     pattern, graph, counts = dp.shard_batch(
         world, pattern, graph, torch.ones(bsz, 1))
-    opt = _Optimizer(model.parameters(), torch.optim.AdamW, lr=1e-3,
-                     betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-5)
+    opt = TorchOptimizer(model.parameters(), torch.optim.AdamW, lr=1e-3,
+                         betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-5)
 
     def mean(x):
         # this rank's rows' sum, summed over the ranks, over every row

@@ -1,6 +1,8 @@
 """Message-passing primitives of the SCM model over a padded batch
 (dualmessagepassing_tpu/ops/scatter.py: gather_nodes 38, gather_scalars
-73, scatter_sum_edges 92, _masked_onehot 190).
+73, scatter_sum_edges 92, _masked_onehot 190), and the JAX module's
+three helpers that no model calls (scatter_sum_flat 124,
+scatter_max_edges 149, segment_softmax_edges 166).
 
 The JAX package writes each primitive as a one-hot einsum, a TPU idiom
 (its matrix unit does a [E, V] x [V, H] product faster than a scatter).
@@ -33,11 +35,26 @@ The `method` argument of the JAX functions ("onehot", "segment", "take",
 None) picks a lowering; every choice computes the same sum, so here it is
 checked and has no other effect.
 
+The three helpers index as JAX's .at[...] and take_along_axis do, not
+as the one-hot lowering (jax_index): an index in [-V, 0) wraps to
+idx + V; an update at any other index outside [0, V) is dropped, and a
+gather there reads NaN. So a receiver of -1 lands in the last row.
+  scatter_sum_flat      masked flat segment-sum [E, H] -> [V, H] on K3
+                        (SegmentSumRows); indices_sorted is a lowering
+                        hint that changes no number (scatter.py:131-139);
+  scatter_max_edges     masked per-receiver max -> [B, V, H], an empty
+                        row 0: torch's scatter_reduce "amax" with the
+                        initial neg_inf rows included, whose gradient, as
+                        JAX's, splits evenly among tied maxima;
+  segment_softmax_edges the softmax within each receiver's segment: that
+                        max, then the sum of the exponentials on K3 (one
+                        column into B*V rows) gathered back through
+                        GatherRows, so its backward runs K3 twice (the
+                        two gathers) and the max's tie rule.
+
 Dispatch: a CPU tensor takes K3's plain version (segment_sum_unsorted_
 plain); a CUDA tensor launches K3 or raises. Every launch, forward or
 backward, adds one to LAUNCHES["segment_sum_unsorted"].
-scatter_sum_flat, scatter_max_edges and segment_softmax_edges are not
-ported (they serve other model families).
 """
 
 from __future__ import annotations
@@ -155,3 +172,87 @@ def bincount_batched(idx: torch.Tensor, mask: torch.Tensor,
     with torch.no_grad():
         out = segment_sum_unsorted(ones, flat_index(idx, n, mask), b * n)
     return out.reshape(b, n)
+
+
+# -----------------------------------------------------------------------------
+# the helpers, indexed as JAX indexes
+# -----------------------------------------------------------------------------
+
+def jax_index(idx: torch.Tensor, n: int) -> tuple:
+    """JAX's index into an axis of length n -> (int64 index, inside): an
+    index in [-n, 0) wraps to idx + n; `inside` marks the indices that
+    then lie in [0, n). .at[...] drops the others' updates and
+    take_along_axis reads NaN there."""
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    return idx, (idx >= 0) & (idx < n)
+
+
+def batch_index(receivers: torch.Tensor, n: int) -> tuple:
+    """[B, E] receivers -> ([B*E] flat indices b*n + idx, with B*n where
+    jax_index drops; inside [B, E])."""
+    idx, inside = jax_index(receivers, n)
+    offs = torch.arange(receivers.shape[0], device=idx.device)[:, None] * n
+    flat = torch.where(inside, idx + offs, receivers.shape[0] * n)
+    return flat.reshape(-1), inside
+
+
+def _take(table: torch.Tensor, flat: torch.Tensor,
+          inside: torch.Tensor) -> torch.Tensor:
+    """take_along_axis of a [N, 1] table at the flat indices -> inside's
+    shape, NaN outside; the backward sums on K3 (GatherRows)."""
+    rows = GatherRows.apply(table, flat, True).reshape(inside.shape)
+    return torch.where(inside, rows, float("nan"))
+
+
+def _segment_max(msg: torch.Tensor, flat: torch.Tensor, n_rows: int,
+                 neg_inf: float) -> torch.Tensor:
+    """[N, H] rows -> [n_rows, H]: the max of neg_inf and the rows at each
+    flat index (n_rows: dropped), as .at[...].max over a neg_inf fill."""
+    h = msg.shape[1]
+    out = msg.new_full((n_rows + 1, h), neg_inf)
+    out = out.scatter_reduce(0, flat[:, None].expand(-1, h), msg, "amax",
+                             include_self=True)
+    return out[:-1]
+
+
+def scatter_sum_flat(messages: torch.Tensor, receivers: torch.Tensor,
+                     edge_mask: torch.Tensor, num_nodes: int,
+                     indices_sorted: bool = False) -> torch.Tensor:
+    """Flat-graph segment-sum: messages [E, H], receivers [E], edge_mask
+    [E] bool -> [V, H] in messages' dtype (summed in float32 on K3)."""
+    del indices_sorted  # a lowering hint: the same sum
+    msg = torch.where(edge_mask[:, None], messages, 0)
+    idx, inside = jax_index(receivers, num_nodes)
+    flat = torch.where(inside & edge_mask, idx, num_nodes)
+    return SegmentSumRows.apply(msg, flat, num_nodes)
+
+
+def scatter_max_edges(messages: torch.Tensor, receivers: torch.Tensor,
+                      edge_mask: torch.Tensor, num_nodes: int,
+                      neg_inf: float = -1e30) -> torch.Tensor:
+    """Masked segment-max: messages [B, E, H], receivers [B, E], edge_mask
+    [B, E] bool -> [B, V, H]; a row that no real message reaches is 0."""
+    b, e, h = messages.shape
+    msg = torch.where(edge_mask[..., None], messages, neg_inf)
+    flat, _ = batch_index(receivers, num_nodes)
+    out = _segment_max(msg.reshape(b * e, h), flat, b * num_nodes, neg_inf)
+    out = out.reshape(b, num_nodes, h)
+    return torch.where(out <= neg_inf / 2, 0.0, out)
+
+
+def segment_softmax_edges(scores: torch.Tensor, receivers: torch.Tensor,
+                          edge_mask: torch.Tensor,
+                          num_nodes: int) -> torch.Tensor:
+    """Per-receiver softmax over incident edges: scores [B, E] -> [B, E];
+    masked edges 0, the denominator clamped to 1e-30."""
+    neg_inf = -1e30
+    b, e = scores.shape
+    rows = b * num_nodes
+    s = torch.where(edge_mask, scores, neg_inf)
+    flat, inside = batch_index(receivers, num_nodes)
+    seg_max = _segment_max(s.reshape(b * e, 1), flat, rows, neg_inf)
+    s = s - _take(seg_max, flat, inside)
+    ex = torch.where(edge_mask, torch.exp(s), 0.0)
+    seg_sum = SegmentSumRows.apply(ex.reshape(b * e, 1), flat, rows)
+    return ex / torch.clamp_min(_take(seg_sum, flat, inside), 1e-30)

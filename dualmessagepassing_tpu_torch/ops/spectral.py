@@ -1,13 +1,14 @@
-"""Degree norms and largest-eigenvalue bounds, host side
-(dualmessagepassing_tpu/ops/spectral.py:18-70, the numpy half).
+"""Degree norms and largest-eigenvalue bounds
+(dualmessagepassing_tpu/ops/spectral.py): the numpy host half (18-70)
+and the device edge norm (edge_norm_device, 71).
 
 Reference: SubgraphCountingMatching/utils/graph.py:11-71. The bounds set
 the DMPLayer init scale (init_neigenv / init_eeigenv); the reference's
-training script clamps them to >= 4.0 (train.py:1174-1186). The device
-edge norm (edge_norm_device, spectral.py:71) is not ported: no JAX model
-calls it (models/compgcn.py:84-93 computes its norms inline, and the
-port's CompGCN and R-GCN use degree_norms). It waits with the other
-helpers off every path (ROADMAP.md queue 1 item 3).
+training script clamps them to >= 4.0 (train.py:1174-1186). No model
+calls edge_norm_device (models/compgcn.py computes its norms inline, and
+the port's CompGCN and R-GCN use degree_norms): it is a plain gather,
+indexed as JAX's take_along_axis (ops/scatter.jax_index: [-V, 0) wraps,
+any other index outside [0, V) reads NaN).
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from .scatter import jax_index
 
 
 def degrees_np(senders: np.ndarray, receivers: np.ndarray, num_nodes: int,
@@ -60,3 +64,19 @@ def compute_norm_np(
         node_norm = np.where(in_deg == 0, 1.0, 1.0 / np.maximum(in_deg, 1))
     node_norm = node_norm[:, None].astype(np.float32)
     return node_norm, node_norm[receivers]
+
+
+def edge_norm_device(in_degrees: torch.Tensor, receivers: torch.Tensor,
+                     self_loop: bool) -> torch.Tensor:
+    """[B, V] in-degrees and [B, E] receivers -> [B, E, 1]: compute_norm's
+    node norm gathered at each edge's receiver."""
+    if not in_degrees.is_floating_point():
+        in_degrees = in_degrees.float()
+    if self_loop:
+        node_norm = 1.0 / (in_degrees + 1.0)
+    else:
+        node_norm = torch.where(in_degrees == 0, 1.0,
+                                1.0 / torch.clamp_min(in_degrees, 1.0))
+    idx, inside = jax_index(receivers, node_norm.shape[1])
+    rows = torch.gather(node_norm, 1, torch.where(inside, idx, 0))
+    return torch.where(inside, rows, float("nan"))[..., None]

@@ -177,6 +177,33 @@ class MultiSteps:
         self.inner.load_state_dict(state["inner"])
 
 
+class TorchOptimizer:
+    """A torch.optim optimizer over a parameter list with the interface
+    the port's train steps call (.params, zero_grad, step(lr_mult)).
+    Every parameter is updated, as optax updates every leaf: one without
+    a gradient gets zeros first. lr_mult scales the step's learning
+    rate, as an optax schedule scales the whole update. With
+    torch.optim.AdamW it is optax.adamw: the decoupled decay of the old
+    parameter plus m_hat / (sqrt(v_hat) + eps), each times lr."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], cls, **kw):
+        self.params = list(params)
+        self.opt = cls(self.params, **kw)
+        self.lrs = [g["lr"] for g in self.opt.param_groups]
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self, lr_mult: float = 1.0) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group, lr in zip(self.opt.param_groups, self.lrs):
+            group["lr"] = lr * lr_mult
+        self.opt.step()
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                    weight_decay: float = 1e-5,
                    max_grad_norm: float = 8.0) -> SCMOptimizer:

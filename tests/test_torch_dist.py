@@ -1,7 +1,8 @@
 """The port's process groups (dualmessagepassing_tpu_torch/parallel/) on
 the CPU over gloo, and the rank functions that tests/test_torch_dp.py,
 tests/test_torch_ep_unc.py, tests/test_torch_halo_unc.py,
-tests/test_torch_edge_partition.py and tests/test_torch_halo.py launch.
+tests/test_torch_edge_partition.py, tests/test_torch_halo.py and
+tests/test_torch_examples.py launch.
 
 This file imports no JAX: the ranks are spawned processes that import it
 by name, and the machine with the card has no JAX. The JAX side of those
@@ -22,6 +23,9 @@ import torch
 
 from dualmessagepassing_tpu_torch import graph as tg
 from dualmessagepassing_tpu_torch.bench import halo_bench
+from dualmessagepassing_tpu_torch.examples import (edge_parallel,
+                                                   multichip_dp,
+                                                   performance_levers)
 from dualmessagepassing_tpu_torch.models import scm_models as sm
 from dualmessagepassing_tpu_torch.ops.segment_kernel import attach_csr_plan
 from dualmessagepassing_tpu_torch.parallel import dist as pd
@@ -393,6 +397,19 @@ def halo_toy_rank(world, data):
     (loss / world.size).backward()
     pd.all_reduce_grads([w], world)
     return loss.item(), x.grad.numpy().copy(), w.grad.numpy().copy()
+
+
+# -----------------------------------------------------------------------------
+# the examples (tests/test_torch_examples.py)
+# -----------------------------------------------------------------------------
+
+def examples_rank(world, state_dict, ep_params):
+    """This rank's part of the three examples that run over ranks: the
+    data-parallel step (on `state_dict`), the edge-partitioned forward
+    (on the JAX package's `ep_params`) and the owner-sharded train_unc."""
+    return {"dp": multichip_dp.dp_step(world, state_dict=state_dict),
+            "ep": edge_parallel.ep_forward(world, ep_params),
+            "halo": performance_levers.unc_train(world)}
 
 
 def hang_rank(world, seconds):

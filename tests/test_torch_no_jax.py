@@ -45,7 +45,12 @@ REQUIRED = [f"dualmessagepassing_tpu_torch.{m}" for m in (
     "parallel.halo_unc", "gates.northstar",
     # the demonstration layer, the halo library, its benches, the dry run
     "parallel.edge_partition", "parallel.halo", "bench.halo_bench",
-    "bench.partition_bench", "dryrun")]
+    "bench.partition_bench", "dryrun",
+    # the SCM learning run and its spread
+    "bench.scm_learn_spread",
+    # the examples
+    "examples", "examples.quickstart_scm", "examples.multichip_dp",
+    "examples.edge_parallel", "examples.performance_levers")]
 
 SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
